@@ -1,0 +1,67 @@
+"""The paper's NIC-offloadable DFS policies (see ``repro.core``).
+
+  * protocol        -> :mod:`repro_torch.core.auth`        (capability validation)
+  * data movement   -> :mod:`repro_torch.core.replication` (broadcast schedule planner)
+  * data processing -> :mod:`repro_torch.core.erasure`     (streaming RS(k, m))
+
+:mod:`repro_torch.core.handlers` composes them into the sPIN HH/PH/CH
+execution model; :mod:`repro_torch.core.packets` defines the wire format;
+:mod:`repro_torch.core.state` the bounded on-NIC state.  The device
+broadcasts of ``repro.core.replication`` are not ported yet, so only the
+host-side planner is exported.
+"""
+
+from repro_torch.core.auth import Capability, CapabilityAuthority, Rights, sponge_mac
+from repro_torch.core.erasure import (
+    RSCode,
+    split_stripe,
+    join_stripe,
+    stream_encode,
+    stream_encode_packets,
+)
+from repro_torch.core.handlers import DFSClient, DFSNode, Router, StorageTarget
+from repro_torch.core.packets import (
+    DEFAULT_MTU,
+    DFSHeader,
+    OpType,
+    Packet,
+    ReadRequestHeader,
+    ReplicaCoord,
+    ReplStrategy,
+    Resiliency,
+    WriteRequestHeader,
+    packetize_write,
+)
+from repro_torch.core.replication import children_of, depth_of, tree_depth
+from repro_torch.core.state import RequestTable, littles_law_concurrent_writes
+
+__all__ = [
+    "Capability",
+    "CapabilityAuthority",
+    "Rights",
+    "sponge_mac",
+    "RSCode",
+    "split_stripe",
+    "join_stripe",
+    "stream_encode",
+    "stream_encode_packets",
+    "DFSClient",
+    "DFSNode",
+    "Router",
+    "StorageTarget",
+    "DEFAULT_MTU",
+    "DFSHeader",
+    "OpType",
+    "Packet",
+    "ReadRequestHeader",
+    "ReplicaCoord",
+    "ReplStrategy",
+    "Resiliency",
+    "WriteRequestHeader",
+    "packetize_write",
+    "children_of",
+    "depth_of",
+    "tree_depth",
+    "RequestTable",
+    "littles_law_concurrent_writes",
+]
