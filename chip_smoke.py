@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch/CUDA port's erasure-coded data plane.
+"""GPU smoke run of the PyTorch/CUDA port: the erasure-coded data plane and
+the attention layer.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -7,35 +8,54 @@ Run from the repository root on a machine with one CUDA GPU:
 
 It needs ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 ``/usr/local/cuda``) and builds every kernel from ``src/repro_torch/kernels/csrc``.
-The geometry is Apache Hadoop's default HDFS erasure-coding policy
-RS-6-3-1024k (6 data + 3 parity cells of 1 MiB; ``hdfs ec -listPolicies``).
+The storage geometry is Apache Hadoop's default HDFS erasure-coding policy
+RS-6-3-1024k (6 data + 3 parity cells of 1 MiB; ``hdfs ec -listPolicies``);
+the attention widths are those of yi-9b (arXiv:2403.04652),
+deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
+``src/repro/configs/registry.py``.
 
-1. Prints the card's name and power limit, builds the kernels (one
-   ``nvcc`` per source, all at once) and prints the build time.
-2. Holds every kernel against its plain PyTorch version on the card,
-   bit-exact (integer work, tolerance 0): RS(6,3) encode of 256 stripes
-   of 1 MiB cells, their decode after losing cells (0, 1, 2), the TriEC
-   stream scaling and XOR aggregation of one 6 x 16 MiB stripe, and the
-   S = 1 launches; plus ragged, unaligned operands.  Each kernel's median
-   time over CUDA-event-timed runs, its byte bound at 3.35 TB/s and its
-   plain version's time.
-3. The main path, with every launch counter set to 0 first: the entry
-   points (``RSCode`` encode/decode, batched and single-stripe,
+1. Prints the card's name and power limit, builds the four kernel sources
+   (one ``nvcc`` per source, all at once) and prints each build time.
+2. Holds every kernel against its plain PyTorch version on the card.
+   Data plane, bit-exact (integer work, tolerance 0): RS(6,3) encode of
+   256 stripes of 1 MiB cells, their decode after losing cells (0, 1, 2),
+   the TriEC stream scaling and XOR aggregation of one 6 x 16 MiB stripe,
+   the S = 1 launches, and the GF(2) bit-matrix product of that stripe
+   (bits (48, 16 Mi)); plus ragged, unaligned operands.  Flash attention
+   at the widths above, within one bf16 ulp plus 1e-3 of a row's RMS, and
+   within 5e-4 relative RMS error (fp32: rtol = atol = 3e-4, the
+   reference's own; see SAME_ARITHMETIC); at whisper's and prefill_32k's
+   shapes, planted faults (the mask of keys past S dropped, one KV tile
+   skipped) must fail that tolerance.  Each
+   kernel's median time over CUDA-event-timed runs, its bound, its plain
+   version's time and, where one PyTorch call computes the same function,
+   that call's time (``library_ms``; the port never calls it).
+3. The data-plane main path, with every launch counter set to 0 first:
+   the entry points (``RSCode`` encode/decode, batched and single-stripe,
    ``stream_encode`` and the parity-node ``xor_reduce_bytes``) against
    the numpy backend, then a 10-node ``StorageCluster`` on the card that
    writes 17 objects with ``write_object_bulk``, loses 3 nodes holding
    data cells of object 0 and reads everything back verified.
-4. Prints ``{"kernels": [...]}`` (launches on the main path, error,
+4. The attention main path, with every launch counter set to 0 again:
+   ``ops.rs_encode_mxu`` against ``ops.rs_encode``; one yi-9b GQA layer and
+   one deepseek-v2-lite MLA layer at full width from seeded params, whose
+   q/k/v go through ``ops.flash_attention`` and are held against the
+   kernel's plain version and against ``blockwise_attention`` (which
+   rounds elsewhere; see OTHER_ROUNDING); decode of the last position
+   against the layer's last row.
+5. Prints ``{"kernels": [...]}`` (launches on each main path, error,
    times, bound) and, last, ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the script exits non-zero without the last
-line.  It exits non-zero at once when no CUDA device is available.
+Float32 matrix products run in full fp32 (TF32 off).  Any failed check
+raises, so the script exits non-zero without the last line.  It exits
+non-zero at once when no CUDA device is available.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -56,6 +76,46 @@ LOST = (0, 1, 2)            # cells lost before the decode
 KERNEL_RUNS = 20
 PLAIN_RUNS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+# H100 SXM peak for the inputs' type: bf16 dense on the tensor cores; fp32
+# outside them (an exact fp32 product has no faster unit)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Each check asks |got - want| <= rtol |want| + row_atol rms(want's row) + atol
+# everywhere (a row is the last axis: one head of one position), and
+# ||got - want|| <= rel_rms ||want|| overall.
+# The kernel against its plain version: the same roundings, since the plain
+# version walks the kernel's KV tiles, so in bf16 the two outputs differ by
+# at most one ulp (2^-7 of the value) where their fp32 sums round apart; the
+# row term is slack of 1e-3 of a row's RMS.  fp32: the reference's own
+# tolerance (tests/test_kernels.py).
+SAME_ARITHMETIC = {
+    "bfloat16": {"rtol": 2 ** -7, "row_atol": 1e-3, "atol": 0.0, "rel_rms": 5e-4},
+    "float32": {"rtol": 3e-4, "row_atol": 0.0, "atol": 3e-4, "rel_rms": 1e-5},
+}
+# Two routes through bf16 that round at other places: blockwise_attention
+# rounds q * scale to bf16 (2^-9 of each element) and p against a 512-key
+# running max, decode rounds the normalized weights; each moves a row by a
+# few 1e-3 of its RMS.
+OTHER_ROUNDING = {"rtol": 2 ** -7, "row_atol": 5e-2, "atol": 0.0, "rel_rms": 1e-2}
+# flash-attention cases in which faults are planted, to show the tolerance
+# rejects them: whisper's ragged S (1500 keys, 36 past the last full tile) and
+# prefill_32k's long rows, where one tile is 64 of up to 32768 keys
+PLANTED_FAULT_CASES = ("whisper-base encoder", "yi-9b prefill_32k")
+# flash attention at supported models' widths (src/repro/configs/registry.py):
+# (case, B, S, H, Hkv, D, Dv, dtype, causal, kernel runs, plain runs).  The
+# first is the attention main path's shape (phase 4).
+FLASH_CASES = [
+    ("yi-9b train_4k", 8, 4096, 32, 4, 128, 128, "bfloat16", True, 20, 3),
+    ("yi-9b prefill_32k", 1, 32768, 32, 4, 128, 128, "bfloat16", True, 3, 3),
+    ("deepseek-v2-lite MLA", 2, 4096, 16, 16, 192, 128, "bfloat16", True, 20, 3),
+    ("whisper-base encoder", 8, 1500, 8, 8, 64, 64, "bfloat16", False, 20, 3),
+    ("yi-9b fp32", 1, 4096, 32, 4, 128, 128, "float32", True, 10, 3),
+]
+MXU_RAGGED = (1, 127, 1000)
+YI = dict(d_model=4096, n_heads=32, n_kv_heads=4, head_dim=128)          # arXiv:2403.04652
+YI_BATCH, ATTN_SEQ = 8, 4096
+DSV2 = dict(d_model=2048, n_heads=16, kv_lora=512, qk_nope=128, qk_rope=64,
+            v_head=128)                                                 # arXiv:2405.04434
+DSV2_BATCH = 2
 CLUSTER_NODES = 10
 CLUSTER_OBJECTS = 16
 CLUSTER_OBJECT_BYTES = 6 << 20
@@ -168,8 +228,8 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
         ge.gf_matmul_bytes_batched, ge.gf_matmul_bytes_batched_plain, (inv, cells),
         STRIPES * (K + K) * CELL, f"decode lost {LOST}: ({K},{K}) x ({STRIPES},{K},{CELL})",
         extra_check=lambda out: check(torch.equal(out, data), "decode did not recover data"))
-    rows["gf_matmul_bytes_batched"].update(
-        {f"decode_{key}": dec[key] for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+    dec["counter"] = "gf_matmul_bytes_batched"
+    rows[dec["name"]] = dec
     del data, cells
 
     stripe = torch.randint(0, 256, (K, STREAM), dtype=torch.uint8, device=dev, generator=gen)
@@ -215,6 +275,212 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
         ragged[length] = "bit-exact"
     print(f"  ragged / unaligned lengths {sorted(ragged)}: bit-exact", flush=True)
     return list(rows.values()), ragged
+
+
+def closeness(got, want, tol: dict) -> tuple[float, float, float]:
+    """(largest |got - want|, largest share of its allowance that any element
+    uses, ||got - want|| / ||want||) under ``tol`` (see SAME_ARITHMETIC)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    row_rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+    allowed = tol["rtol"] * want.abs() + tol["row_atol"] * row_rms + tol["atol"]
+    share = torch.where(diff == 0, 0.0, diff / allowed).max()
+    return float(diff.max()), float(share), float(diff.norm() / want.norm())
+
+
+def assert_close(got, want, tol: dict, what: str) -> dict:
+    """Check that ``got`` is finite and within ``tol`` of ``want``; return the
+    largest |got - want|, the largest share of its allowance any element
+    used and the relative RMS error."""
+    import torch
+
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite values")
+    err, share, rel = closeness(got, want, tol)
+    check(share <= 1.0 and rel <= tol["rel_rms"],
+          f"{what}: differs beyond {tol} (max |err| {err}, {share:.3g} of the allowance, "
+          f"relative RMS error {rel:.3g})")
+    return {"max_abs_err": err, "tolerance_share": share, "rel_rms_err": rel}
+
+
+def plain_at_offset(q, k, v, causal: bool, q_offset: int):
+    """The plain version's arithmetic for queries at positions q_offset + i
+    against all of k/v (the kernel's tiles, q scaled in fp32)."""
+    from repro_torch.kernels.flash_attention import KV_TILE
+    from repro_torch.models.attention import _flash_fwd_scan, _group_q
+
+    b, s, h, d = q.shape
+    qg = _group_q(q.float() * (1.0 / math.sqrt(d)), k.shape[2])
+    out, _ = _flash_fwd_scan(qg, k, v, causal, KV_TILE, q_offset)
+    return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
+
+
+def planted_faults(q, k, v, causal: bool, got, tol: dict) -> dict:
+    """What a kernel with a planted fault would return, computed by the plain
+    arithmetic, held against the kernel's output ``got``: each must fail the
+    tolerance the kernel passed.  Returns each fault's closeness."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import KV_TILE
+
+    s = q.shape[1]
+    faults = {}
+    if not causal and s % KV_TILE:
+        # the kv >= S mask dropped: the last tile's zero-filled keys score 0
+        pad = torch.zeros_like(k[:, :KV_TILE - s % KV_TILE])
+        padv = torch.zeros_like(v[:, :pad.shape[1]])
+        faults["mask of keys >= S dropped"] = plain_at_offset(
+            q, torch.cat([k, pad], 1), torch.cat([v, padv], 1), False, 0)
+    if causal:
+        def skip(tile: int, first_row: int):
+            """q rows from first_row on skip KV tile ``tile``."""
+            lo, hi = tile * KV_TILE, (tile + 1) * KV_TILE
+            k2, v2 = torch.cat([k[:, :lo], k[:, hi:]], 1), torch.cat([v[:, :lo], v[:, hi:]], 1)
+            rest = plain_at_offset(q[:, first_row:], k2, v2, True, first_row - KV_TILE)
+            return torch.cat([got[:, :first_row], rest], 1)
+
+        mid = s // 2 // KV_TILE
+        faults["last q tile skips KV tile 0"] = skip(0, s - KV_TILE)
+        faults[f"q tiles past {mid} skip KV tile {mid}"] = skip(mid, (mid + 1) * KV_TILE)
+    out = {}
+    for name, wrong in faults.items():
+        err, share, rel = closeness(wrong, got, tol)
+        check(share > 1.0 or rel > tol["rel_rms"], f"planted fault passed: {name}")
+        out[name] = {"max_abs_err": err, "tolerance_share": share, "rel_rms_err": rel}
+    return out
+
+
+def flash_case(dev, gen, case) -> dict:
+    """One flash-attention shape: kernel against plain version, then times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    name, b, s, h, hkv, d, dv, dtype, causal, runs, plain_runs = case
+    dt = getattr(torch, dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    q, k, v = draw((b, s, h, d)), draw((b, s, hkv, d)), draw((b, s, hkv, dv))
+    got = fa.flash_attention_fwd(q, k, v, causal)
+    tol = SAME_ARITHMETIC[dtype]
+    close = assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal), tol,
+                         f"flash_attention_fwd {name}")
+    faults = planted_faults(q, k, v, causal, got, tol) if name in PLANTED_FAULT_CASES else {}
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    flops = 2 * pairs * (d + dv)
+    nbytes = q.element_size() * b * s * (h * d + hkv * (d + dv) + h * dv)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    res = {
+        "case": name, "shape": f"q {(b, s, h, d)} k {(b, s, hkv, d)} v {(b, s, hkv, dv)}",
+        "dtype": dtype, "causal": causal, **close, "tolerance": tol,
+        "ms": median_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), runs),
+        "plain_ms": median_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal), plain_runs),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    if faults:
+        res["planted_faults"] = faults
+    # the yardstick: one PyTorch call computing the same function on (B,H,S,D)
+    # views.  Only its refusal of a shape is caught, and reported; the port
+    # never calls it.
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    try:
+        lib_out = library()
+    except RuntimeError as exc:
+        res["library_ms"] = None
+        res["library_note"] = f"scaled_dot_product_attention refused: {str(exc)[:160]}"
+    else:
+        res["library_max_abs_err"] = float((lib_out.transpose(1, 2).float() - got.float())
+                                           .abs().max())
+        del lib_out
+        res["library_ms"] = median_ms(library, runs)
+    del got
+    torch.cuda.empty_cache()
+    lib = "refused" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
+    print(f"  flash_attention_fwd {name} {dtype} {'causal' if causal else 'full'} "
+          f"{res['shape']}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f} ms, bound "
+          f"{res['bound_ms']:.3f} ms by {res['bound_by']}, library {lib}), max |err| "
+          f"{close['max_abs_err']:.3g} ({close['tolerance_share']:.3g} of the allowance), "
+          f"relative RMS error {close['rel_rms_err']:.3g}", flush=True)
+    for fault, c in faults.items():
+        print(f"    planted fault '{fault}': rejected, {c['tolerance_share']:.3g} of the "
+              f"allowance, relative RMS error {c['rel_rms_err']:.3g}", flush=True)
+    return res
+
+
+def check_attention_kernels(dev) -> list[dict]:
+    """Phase 2, second slice: flash attention and the GF(2) bit-matrix
+    product against their plain versions."""
+    import torch
+
+    from repro_torch.kernels import gf256_encode as ge
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    cases = [flash_case(dev, gen, case) for case in FLASH_CASES]
+    main = cases[0]
+    flash = {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82", "launches": None,
+        **{key: main[key] for key in ("max_abs_err", "tolerance", "tolerance_share",
+                                      "rel_rms_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "shape")},
+        "cases": cases,
+    }
+
+    bigmat = ops.rs_block_bitmatrix(K, M, "cauchy", dev)
+    bits = torch.randint(0, 2, (8 * K, STREAM), dtype=torch.int8, device=dev, generator=gen)
+    mxu = measure(
+        "gf_matmul_mxu", "src/repro_torch/kernels/csrc/gf_mxu.cu",
+        "src/repro/kernels/gf256_encode.py:240", ge.gf_matmul_mxu, ge.gf_matmul_mxu_plain,
+        (bigmat, bits), 8 * K * STREAM + 8 * M * STREAM + bigmat.numel(),
+        f"({8 * M},{8 * K}) x ({8 * K},{STREAM}) bits")
+    want = ge.gf_matmul_mxu(bigmat, bits)
+    # the yardstick, on the same tensors: cuBLASLt takes int8 products only in
+    # some layouts, so the transposed views are tried when the direct form is
+    # refused.  Only a refusal is caught, and reported.
+    forms = {
+        "torch._int_mm(bigmat, bits) & 1": lambda: torch._int_mm(bigmat, bits) & 1,
+        "torch._int_mm(bits.T, bigmat.T).T & 1":
+            lambda: torch._int_mm(bits.t(), bigmat.t()).t() & 1,
+    }
+    notes = []
+    for form, library in forms.items():
+        try:
+            lib_out = library()
+        except RuntimeError as exc:
+            notes.append(f"{form} refused: {str(exc)[:120]}")
+            continue
+        mxu["library_form"] = form
+        mxu["library_matches"] = bool(torch.equal(lib_out.to(torch.int8), want))
+        del lib_out
+        mxu["library_ms"] = median_ms(library, KERNEL_RUNS)
+        print(f"  gf_matmul_mxu library ({form}): {mxu['library_ms']:.4f} ms, "
+              f"equal to the kernel: {mxu['library_matches']}", flush=True)
+        break
+    if notes:
+        mxu["library_note"] = "; ".join(notes)
+        print(f"  gf_matmul_mxu library: {mxu['library_note']}", flush=True)
+    del bits, want
+    for n in MXU_RAGGED:
+        bits = torch.randint(0, 2, (8 * K, n), dtype=torch.int8, device=dev, generator=gen)
+        check(torch.equal(ge.gf_matmul_mxu(bigmat, bits), ge.gf_matmul_mxu_plain(bigmat, bits)),
+              f"gf_matmul_mxu ragged n={n} differs")
+    print(f"  gf_matmul_mxu ragged n {list(MXU_RAGGED)}: bit-exact", flush=True)
+    torch.cuda.empty_cache()
+    return [flash, mxu]
 
 
 def drive_entry_points(dev) -> None:
@@ -317,6 +583,102 @@ def drive_cluster(dev, counters) -> dict:
             "read_s": read_s, "read_ec_s": read_ec["ec_s"]}
 
 
+def drive_attention_path(dev) -> dict:
+    """Phase 4: the bit-matrix RS encode, then one yi-9b GQA layer and one
+    deepseek-v2-lite MLA layer at full width, their q/k/v through
+    ``ops.flash_attention`` against ``blockwise_attention``, and decode of
+    the last position against the layer's last row."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
+    from repro_torch.models.attention import (
+        blockwise_attention, gqa_apply, gqa_decode, gqa_init, mla_apply, mla_decode, mla_init)
+    from repro_torch.models.layers import apply_rope, dense_apply
+
+    tol, same = OTHER_ROUNDING, SAME_ARITHMETIC["bfloat16"]
+    bf16 = torch.bfloat16
+    errors = {}
+    stripe = np.random.default_rng(SEED + 2).integers(0, 256, (K, CELL), dtype=np.uint8)
+    check(torch.equal(ops.rs_encode_mxu(stripe, K, M, device=dev),
+                      ops.rs_encode(stripe, K, M, device=dev)),
+          "rs_encode_mxu differs from rs_encode")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    b, s = YI_BATCH, ATTN_SEQ
+    d_model, h, hkv, hd = YI["d_model"], YI["n_heads"], YI["n_kv_heads"], YI["head_dim"]
+    p = gqa_init(gen, d_model, h, hkv, hd)
+    x = torch.randn((b, s, d_model), generator=gen, device=dev).to(bf16)
+    out = gqa_apply(p, x, h, hkv, hd)
+    pos = torch.arange(s, device=dev)[None, :]
+    q = apply_rope(dense_apply(p["wq"], x).reshape(b, s, h, hd), pos)
+    k = apply_rope(dense_apply(p["wk"], x).reshape(b, s, hkv, hd), pos)
+    v = dense_apply(p["wv"], x).reshape(b, s, hkv, hd)
+    flash = ops.flash_attention(q, k, v, causal=True, device=dev)
+    errors["gqa_flash_vs_plain"] = assert_close(
+        flash, flash_attention_fwd_plain(q, k, v, True), same, "yi-9b flash vs plain")
+    errors["gqa_flash_vs_blockwise"] = assert_close(
+        flash, blockwise_attention(q, k, v, True, 512, 0), tol, "yi-9b flash vs blockwise")
+    errors["gqa_layer_with_flash_vs_apply"] = assert_close(
+        dense_apply(p["wo"], flash.reshape(b, s, h * hd)), out, tol, "yi-9b layer via flash")
+    cache_k = torch.zeros((b, s, hkv, hd), dtype=bf16, device=dev)
+    cache_v = torch.zeros_like(cache_k)
+    cache_k[:, :s - 1] = k[:, :s - 1]
+    cache_v[:, :s - 1] = v[:, :s - 1]
+    dec, _, _ = gqa_decode(p, x[:, s - 1:], cache_k, cache_v, s - 1, h, hkv, hd)
+    errors["gqa_decode_vs_apply"] = assert_close(dec[:, 0], out[:, -1], tol,
+                                                 "yi-9b decode vs last row")
+    del p, x, out, q, k, v, flash, cache_k, cache_v
+    torch.cuda.empty_cache()
+
+    b = DSV2_BATCH
+    d_model, h, lora = DSV2["d_model"], DSV2["n_heads"], DSV2["kv_lora"]
+    nope, rope, vh = DSV2["qk_nope"], DSV2["qk_rope"], DSV2["v_head"]
+    p = mla_init(gen, d_model, h, lora, nope, rope, vh)
+    x = torch.randn((b, s, d_model), generator=gen, device=dev).to(bf16)
+    out = mla_apply(p, x, h, lora, nope, rope, vh)
+    q = dense_apply(p["wq"], x).reshape(b, s, h, nope + rope)
+    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], pos)], dim=-1)
+    dkv = dense_apply(p["w_dkv"], x)
+    c_kv, k_rope = dkv[..., :lora], apply_rope(dkv[..., None, lora:], pos)[..., 0, :]
+    k = torch.cat([dense_apply(p["w_uk"], c_kv).reshape(b, s, h, nope),
+                   k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
+    v = dense_apply(p["w_uv"], c_kv).reshape(b, s, h, vh)
+    flash = ops.flash_attention(q, k, v, causal=True, device=dev)
+    errors["mla_flash_vs_plain"] = assert_close(
+        flash, flash_attention_fwd_plain(q, k, v, True), same, "deepseek-v2-lite flash vs plain")
+    errors["mla_flash_vs_blockwise"] = assert_close(
+        flash, blockwise_attention(q, k, v, True, 512, 0), tol,
+        "deepseek-v2-lite flash vs blockwise")
+    errors["mla_layer_with_flash_vs_apply"] = assert_close(
+        dense_apply(p["wo"], flash.reshape(b, s, h * vh)), out, tol,
+        "deepseek-v2-lite layer via flash")
+    cache_c = torch.zeros((b, s, lora), dtype=bf16, device=dev)
+    cache_kr = torch.zeros((b, s, rope), dtype=bf16, device=dev)
+    cache_c[:, :s - 1] = c_kv[:, :s - 1]
+    cache_kr[:, :s - 1] = k_rope[:, :s - 1]
+    dec, _, _ = mla_decode(p, x[:, s - 1:], cache_c, cache_kr, s - 1, h, lora, nope, rope, vh)
+    errors["mla_decode_vs_apply"] = assert_close(dec[:, 0], out[:, -1], tol,
+                                                 "deepseek-v2-lite decode vs last row")
+    print("  attention path: rs_encode_mxu == rs_encode; flash against its plain version at "
+          f"{same}, against blockwise attention, the layer and decode at {tol}:", flush=True)
+    for what, close in errors.items():
+        print(f"    {what}: max |err| {close['max_abs_err']:.3g}, {close['tolerance_share']:.3g} "
+              f"of the allowance, relative RMS error {close['rel_rms_err']:.3g}", flush=True)
+    return errors
+
+
+def count_launches(rows: list[dict], counters: dict, path: str) -> None:
+    """Set each row's launches from its counter and fail on a kernel the
+    path did not launch."""
+    for row in rows:
+        row["launches"] = counters[row.get("counter", row["name"])].launches
+        check(row["launches"] > 0, f"{row['name']} was not launched on the {path} main path")
+    print(f"  launches on the {path} main path: "
+          f"{ {row['name']: row['launches'] for row in rows} }", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -324,9 +686,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gf256_encode as ge
     from repro_torch.kernels import xor_reduce as xr
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -336,25 +701,30 @@ def main() -> int:
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})", flush=True)
 
     print("phase 2: kernels against their plain versions", flush=True)
-    rows, _ = check_kernels(dev)
+    dataplane_rows, _ = check_kernels(dev)
     torch.cuda.empty_cache()
+    attention_rows = check_attention_kernels(dev)
 
-    counters = {fn.__name__: fn for fn in (*ge.KERNELS, *xr.KERNELS)}
-    print("phase 3: main path", flush=True)
+    counters = {fn.__name__: fn for fn in (*ge.KERNELS, *xr.KERNELS, *fa.KERNELS)}
+    print("phase 3: data-plane main path", flush=True)
     for fn in counters.values():
         fn.launches = 0
     drive_entry_points(dev)
     cluster = drive_cluster(dev, counters)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        check(row["launches"] > 0, f"{row['name']} was not launched on the main path")
-    print(f"  launches on the main path: {launches}", flush=True)
+    count_launches(dataplane_rows, counters, "data-plane")
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"cluster": cluster}))
+    print("phase 4: attention main path", flush=True)
+    for fn in counters.values():
+        fn.launches = 0
+    attention = drive_attention_path(dev)
+    torch.cuda.synchronize()
+    count_launches(attention_rows, counters, "attention")
+
+    print(json.dumps({"cluster": cluster, "attention": attention}))
     print(card)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": dataplane_rows + attention_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -1,0 +1,133 @@
+"""Flash attention forward: the online-softmax attention of the training path.
+
+Wrapper of the hand-written CUDA kernel in ``csrc/flash_attention.cu``,
+with its plain PyTorch version beside it:
+
+  ======================  =====================================================
+  wrapper                 replaces (Pallas TPU kernel)
+  ======================  =====================================================
+  flash_attention_fwd     src/repro/kernels/flash_attention.py:flash_attention_fwd
+  ======================  =====================================================
+
+q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv), bf16 or fp32 -> (B,S,H,Dv) in
+q's dtype: grouped-query heads (kv head = h // rep, never repeated in
+memory), causal or not, fp32 accumulation, q upcast to fp32 before the
+scaling and p rounded to v's dtype before P.V, as the TPU kernel computes
+it.  (``models.attention.blockwise_attention`` scales q in q's dtype
+instead; in bf16 the two differ by that rounding.)
+
+Bound: operations (about S/4 to S/2 flops per byte in bf16).  Design: one
+block per (b, h, 64-row q tile), a loop over 64-row KV tiles inside it
+that stops at the diagonal when causal, the (B,S,H,D) layout read through
+strides with no transpose or padding pass, fp32 FMAs over shared-memory
+tiles; see the source's header.  The TPU tile arguments ``bq``/``bk`` are
+not carried over: the kernel picks its own tiles.
+
+A wrapper given CPU tensors computes the plain version; given CUDA tensors
+it launches the kernel on the current stream or raises.  Either way it is
+forward only, as the TPU kernel is, and raises when an operand needs a
+gradient.  ``flash_attention_fwd.launches`` counts its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: head dims of the supported architectures (zamba2: 80; deepseek-v2 MLA: 192/128)
+SUPPORTED_D = (64, 80, 128, 192)
+SUPPORTED_DV = (64, 80, 128)
+#: keys per KV tile in the kernel (kBK in the source); the plain version walks the same
+KV_TILE = 64
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _INT, *[_I64] * 15, _INT, _PTR],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("flash_attention", _SIGNATURES)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on operands the kernel does not take."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"expected (B,S,H,D) operands, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"expected bfloat16 or float32, got {q.dtype}")
+    b, s, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    if k.shape[:2] != (b, s) or v.shape[:3] != k.shape[:3] or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         "must share B and S (and k, v their heads; q, k their head dim)")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
+    if d not in SUPPORTED_D or dv not in SUPPORTED_DV:
+        raise ValueError(f"head dims D={d}, Dv={dv} outside D in {SUPPORTED_D}, "
+                         f"Dv in {SUPPORTED_DV}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True) -> torch.Tensor:
+    """The TPU kernel's arithmetic in plain PyTorch, for any head dims.
+
+    ``blockwise_attention``'s online-softmax loop with q scaled in fp32, as
+    the kernel scales it, over the kernel's own ``KV_TILE``-key tiles: the
+    running max is then the kernel's after every tile, so each p rounds to
+    v's dtype as the kernel rounds it, and the two differ only in the order
+    of fp32 sums.  The score block stays (B, S, H, tile) however long S is.
+    """
+    from repro_torch.models.attention import _flash_fwd_scan, _group_q
+
+    b, s, h, d = q.shape
+    qg = _group_q(q.float() * (1.0 / math.sqrt(d)), k.shape[2])
+    out, _ = _flash_fwd_scan(qg, k, v, causal, KV_TILE, 0)
+    return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (B,S,H,Dv) in q's dtype.
+
+    Forward only, like the TPU kernel: the call raises when autograd would
+    need a gradient through it (use ``blockwise_attention`` to train).
+    """
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_fwd has no backward; call it under "
+                           "torch.no_grad() or use models.attention.blockwise_attention")
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal)
+    b, s, h, _ = q.shape
+    out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
+    if out.numel():
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+        lib = _lib()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+                b, s, h, k.shape[2], q.shape[3], v.shape[3],
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), stream)
+        _build.check(lib, rc, "flash_attention_fwd")
+        flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0
+
+#: every kernel wrapper of this module, for launch accounting
+KERNELS = (flash_attention_fwd,)

@@ -10,12 +10,17 @@ each with its plain PyTorch version beside it:
   gf_matmul_bytes             src/repro/kernels/gf256_encode.py:gf_matmul_bitsliced
                               (the S = 1 launch of the same kernel)
   gf_scale_bytes              src/repro/kernels/gf256_encode.py:gf_scale_bitsliced
+  gf_matmul_mxu               src/repro/kernels/gf256_encode.py:gf_matmul_mxu
+                              (kernel in csrc/gf_mxu.cu)
   ==========================  =========================================================
 
 Bound: device memory.  The matmul moves S*(k+n)*L bytes, the scaling
 stage k*L + m*k*L.  Design: per-coefficient 256-entry product tables in
 shared memory, one lookup per byte product, bytes in and bytes out in one
 pass (no bit-plane packing around the kernel); see the source's header.
+``gf_matmul_mxu`` is the GF(2) form on unpacked bits, (bigmat @ bits) & 1
+with int32 accumulation, moving 8k*n + 8m*n bytes: the bit-matrix in
+shared memory, __dp4a over 4x4 byte transposes; see ``csrc/gf_mxu.cu``.
 
 A wrapper given CPU tensors computes the plain version, which is also the
 oracle ``chip_smoke.py`` holds the kernel against on the card.  Given
@@ -39,8 +44,17 @@ _SIGNATURES = {
 }
 
 
+_MXU_SIGNATURES = {"gf_matmul_mxu": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR]}
+#: most input bits (8k) of one GF(2) product; int32 sums cannot overflow
+MXU_MAX_K_BITS = 2048
+
+
 def _lib() -> ctypes.CDLL:
     return _build.load("gf256_encode", _SIGNATURES)
+
+
+def _mxu_lib() -> ctypes.CDLL:
+    return _build.load("gf_mxu", _MXU_SIGNATURES)
 
 
 def _check(coeffs: torch.Tensor, data: torch.Tensor, ndim: int) -> None:
@@ -150,9 +164,54 @@ def gf_scale_bytes(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_mxu(bigmat: torch.Tensor, bits: torch.Tensor) -> None:
+    """Raise on operands the GF(2) kernel does not take."""
+    if bigmat.dtype != torch.int8 or bits.dtype != torch.int8:
+        raise TypeError(f"expected int8 operands, got {bigmat.dtype} and {bits.dtype}")
+    if bigmat.ndim != 2 or bits.ndim != 2 or bigmat.shape[1] != bits.shape[0]:
+        raise ValueError(f"bad operand shapes: bigmat {tuple(bigmat.shape)}, "
+                         f"bits {tuple(bits.shape)}")
+    ek = bigmat.shape[1]
+    if ek % 8 or not 8 <= ek <= MXU_MAX_K_BITS:
+        raise ValueError(f"{ek} input bits: not a multiple of 8 in [8, {MXU_MAX_K_BITS}]")
+    if bigmat.device != bits.device:
+        raise ValueError(f"bigmat on {bigmat.device}, bits on {bits.device}")
+    if bits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {bits.device}")
+
+
+def gf_matmul_mxu_plain(bigmat: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """(bigmat @ bits) & 1 through the low bits of both operands: the parity
+    of an integer dot is the dot of the parities mod 2, and float32 sums
+    the 0/1 products exactly (at most 2048 terms < 2**24)."""
+    prod = (bigmat & 1).float() @ (bits & 1).float()
+    return (prod.to(torch.int32) & 1).to(torch.int8)
+
+
+def gf_matmul_mxu(bigmat: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """(8m, 8k) int8 bit-matrix x (8k, n) int8 bits -> (8m, n) int8, mod 2."""
+    _check_mxu(bigmat, bits)
+    if bits.device.type == "cpu":
+        return gf_matmul_mxu_plain(bigmat, bits)
+    em, n = bigmat.shape[0], bits.shape[1]
+    out = torch.empty((em, n), dtype=torch.int8, device=bits.device)
+    if out.numel():
+        lib = _mxu_lib()
+        bigmat = bigmat.contiguous()
+        bits = bits.contiguous()
+        with torch.cuda.device(bits.device):
+            stream = torch.cuda.current_stream(bits.device).cuda_stream
+            rc = lib.gf_matmul_mxu(bigmat.data_ptr(), bits.data_ptr(), out.data_ptr(),
+                                   em, bigmat.shape[1], n, stream)
+        _build.check(lib, rc, "gf_matmul_mxu")
+        gf_matmul_mxu.launches += 1
+    return out
+
+
 gf_matmul_bytes_batched.launches = 0
 gf_matmul_bytes.launches = 0
 gf_scale_bytes.launches = 0
+gf_matmul_mxu.launches = 0
 
 #: every kernel wrapper of this module, for launch accounting
-KERNELS = (gf_matmul_bytes_batched, gf_matmul_bytes, gf_scale_bytes)
+KERNELS = (gf_matmul_bytes_batched, gf_matmul_bytes, gf_scale_bytes, gf_matmul_mxu)

@@ -1,8 +1,9 @@
-"""Public data-plane ops over the CUDA kernels (see ``repro.kernels.ops``).
+"""Public ops over the CUDA kernels (see ``repro.kernels.ops``).
 
 Same surface as the reference: GF(2^8) matmul / RS encode on byte
-streams, single and stripe-batched, the TriEC stream scaling and the
-batched XOR aggregation.  Each op takes an explicit ``device``: inputs
+streams, single and stripe-batched, the bit-matrix ("MXU") RS encode, the
+TriEC stream scaling, the batched XOR aggregation, and the flash
+attention dispatch.  Each op takes an explicit ``device``: inputs
 (numpy arrays or tensors) move there and results stay there.  The default
 is ``"cuda"``, and asking for it without a GPU raises; ``device="cpu"``
 runs each kernel's plain PyTorch version.  ``backend="ref"`` routes to the
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import gf256
+from repro_torch.kernels import flash_attention as flash_attention_kernel
 from repro_torch.kernels import gf256_encode, ref, xor_reduce
 
 
@@ -171,6 +173,41 @@ def rs_encode(
     return gf_matmul_bytes(parity, data, backend=backend, device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def rs_block_bitmatrix(k: int, m: int, kind: str, device: torch.device) -> torch.Tensor:
+    """The (8m, 8k) int8 block bit-matrix of RS(k, m)'s parity rows, on
+    ``device``: out-row i*8+ob, in-col j*8+ib."""
+    bm = gf256.parity_bitmatrix(gf256.generator_matrix(k, m, kind)[k:])   # (m, k, 8, 8)
+    big = np.transpose(bm, (0, 2, 1, 3)).reshape(8 * m, 8 * k).astype(np.int8)
+    return torch.from_numpy(big).to(device)
+
+
+def rs_encode_mxu(
+    data,
+    k: int,
+    m: int,
+    kind: str = "cauchy",
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> torch.Tensor:
+    """Bit-matrix RS encode (the reference's beyond-paper MXU variant).
+
+    Unpacks bytes to one-bit int8 rows, multiplies by the (8m, 8k) block
+    bit-matrix mod 2 in one kernel launch, packs back.  Bit layout: column
+    t holds byte t of the stripe; row j*8+b is bit b of chunk j.  The
+    kernel masks a ragged L itself, so there is no padding.
+    """
+    data = _bytes_on(data, device)
+    if data.ndim != 2 or data.shape[0] != k:
+        raise ValueError(f"expected ({k}, L) data chunks, got {tuple(data.shape)}")
+    length = data.shape[1]
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    bits = ((data[:, None, :] >> shifts[None, :, None]) & 1).to(torch.int8)
+    out_bits = gf256_encode.gf_matmul_mxu(rs_block_bitmatrix(k, m, kind, data.device),
+                                          bits.reshape(8 * k, length))
+    out_bits = out_bits.reshape(m, 8, length).to(torch.uint8)
+    return (out_bits << shifts[None, :, None]).sum(dim=1).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # XOR aggregation.
 # ---------------------------------------------------------------------------
@@ -208,3 +245,40 @@ def xor_reduce_bytes_batched(
     if backend != "kernel":
         raise ValueError(f"unknown backend {backend!r}")
     return xor_reduce.xor_reduce_bytes_batched(x)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (CUDA forward kernel; blockwise path on the CPU).
+# ---------------------------------------------------------------------------
+
+
+def _float_on(x, device: torch.device) -> torch.Tensor:
+    """``x`` (numpy array or tensor) as a tensor on ``device``, dtype kept."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def flash_attention(
+    q,
+    k,
+    v,
+    causal: bool = True,
+    backend: str | None = None,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> torch.Tensor:
+    """Dispatch as the reference does: the hand-written kernel on a CUDA
+    device (the counterpart of "Pallas on TPU") or with
+    ``backend="kernel"`` (on CPU tensors, its plain version); else the
+    differentiable ``blockwise_attention(q, k, v, causal, 512, 0)``.  The
+    kernel path is forward only, as the TPU kernel is: it raises when q, k
+    or v needs a gradient."""
+    if backend not in (None, "kernel"):
+        raise ValueError(f"unknown backend {backend!r}")
+    dev = resolve_device(device)
+    q, k, v = (_float_on(x, dev) for x in (q, k, v))
+    if backend == "kernel" or dev.type == "cuda":
+        return flash_attention_kernel.flash_attention_fwd(q, k, v, causal)
+    from repro_torch.models.attention import blockwise_attention
+
+    return blockwise_attention(q, k, v, causal, 512, 0)

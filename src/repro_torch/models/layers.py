@@ -1,0 +1,161 @@
+"""Shared model building blocks (PyTorch port of ``repro.models.layers``).
+
+Conventions, as in the reference:
+  * every layer is (init(gen, ...) -> params, apply(params, x, ...) -> y);
+  * params are nested dicts of tensors, with the reference's names and
+    layouts (a dense ``w`` is (d_in, d_out)), so a ``repro`` params tree
+    carries across through :mod:`repro_torch.models.convert`;
+  * compute dtype is bf16 by default with fp32 accumulation for norms,
+    softmax and the loss; master weights are fp32 (cast at use).
+
+Every ``*_init`` that draws numbers takes an explicit ``torch.Generator``
+and puts its tensors on that generator's device; the draws differ from
+``jax.random``'s, so tests carry the reference's params across instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import DEFAULT_DEVICE
+from repro_torch.kernels.ops import resolve_device
+
+Params = dict[str, Any]
+
+
+def _init_dense(gen: torch.Generator, d_in: int, d_out: int, scale=None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=gen.device)
+    return w * scale
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, bias: bool = False,
+               scale=None) -> Params:
+    p = {"w": _init_dense(gen, d_in, d_out, scale)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def dense_apply(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    y = x.to(dtype) @ p["w"].to(dtype)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def rmsnorm_init(d: int, device: str | torch.device = DEFAULT_DEVICE) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=resolve_device(device))}
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def layernorm_init(d: int, device: str | torch.device = DEFAULT_DEVICE) -> Params:
+    dev = resolve_device(device)
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=dev),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=dev)}
+
+
+def layernorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+def swiglu_init(gen: torch.Generator, d: int, d_ff: int) -> Params:
+    return {
+        "gate": dense_init(gen, d, d_ff),
+        "up": dense_init(gen, d, d_ff),
+        "down": dense_init(gen, d_ff, d, scale=1.0 / math.sqrt(d_ff)),
+    }
+
+
+def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = dense_apply(p["gate"], x)
+    u = dense_apply(p["up"], x)
+    return dense_apply(p["down"], F.silu(g) * u)
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int) -> Params:
+    return {
+        "up": dense_init(gen, d, d_ff, bias=True),
+        "down": dense_init(gen, d_ff, d, bias=True, scale=1.0 / math.sqrt(d_ff)),
+    }
+
+
+def gelu_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return dense_apply(p["down"], F.gelu(dense_apply(p["up"], x), approximate="tanh"))
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int) -> Params:
+    table = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=gen.device)
+    return {"table": table * 0.02}
+
+
+def embed_apply(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return p["table"].to(dtype)[tokens.long()]
+
+
+# -- rotary position embeddings ---------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 1e4,
+               device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=resolve_device(device)) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
+
+    Angles, cos and sin in fp32 whatever ``x``'s dtype; the rotation is
+    computed in fp32 (bf16 x fp32 promotes, as in JAX) and cast back.
+    """
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                               # (D/2,)
+    angles = positions[..., :, None, None].to(torch.float32) * freqs     # (..,S,1,D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    xr1 = x1 * cos - x2 * sin
+    xr2 = x2 * cos + x1 * sin
+    out = torch.stack([xr1, xr2], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,       # (B, S, d) final hidden states
+    unembed: torch.Tensor,      # (d, V) projection (fp32 master)
+    labels: torch.Tensor,       # (B, S) integer
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Mean next-token CE without materializing (B, S, V) logits.
+
+    Loops over sequence chunks; each chunk computes (B, chunk, V) logits
+    in bf16 with an fp32 log-sum-exp.
+    """
+    b, s, _ = hidden.shape
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    w = unembed.to(torch.bfloat16)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        hc = hidden[:, c0:c0 + chunk].to(torch.bfloat16)
+        yc = labels[:, c0:c0 + chunk].long()
+        logits = (hc @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        total = total + (lse - gold).sum()
+    return total / (b * s)

@@ -5,10 +5,16 @@ the GPU machine from the repository root:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Integer work, so every comparison is bit-exact (tolerance 0).  The sizes
-cover the shapes the kernels must take that the main path rarely gives
-them: ragged and odd lengths, unaligned and non-contiguous operands, and
-codes wide enough that a block holds fewer than all output rows.
+The GF(2^8), GF(2) and XOR kernels do integer work, so those comparisons
+are bit-exact (tolerance 0).  Flash attention is held against its plain
+version on the same inputs, which walks the kernel's KV tiles and so
+rounds where the kernel rounds: in fp32 at rtol = atol = 3e-4 (the
+reference's own, tests/test_kernels.py), in bf16 within one ulp (2^-7 of
+the value) plus 1e-3 of the row's RMS, and in both within a relative RMS
+error of 1e-5 (fp32) or 5e-4 (bf16).  The sizes cover the shapes the kernels
+must take that the main path rarely gives them: ragged and odd lengths,
+unaligned and non-contiguous operands, and codes wide enough that a block
+holds fewer than all output rows.
 """
 
 import numpy as np
@@ -16,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.core import gf256
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gf256_encode as ge
 from repro_torch.kernels import ops
 from repro_torch.kernels import xor_reduce as xr
@@ -109,3 +116,162 @@ def test_wrappers_raise_on_operands_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         ge.gf_matmul_bytes_batched(coeffs.cpu(), torch.ones((1, 3, 8), dtype=torch.uint8,
                                                             device=cuda))
+
+
+# -- GF(2) bit-matrix product (the "MXU" RS encode) -------------------------------
+
+
+MXU_LENGTHS = [1, 127, 1000, 4096, 1_000_003]
+
+
+@pytest.mark.parametrize("k,m", [(3, 2), (6, 3), (10, 4), (200, 8), (255, 1)])
+@pytest.mark.parametrize("n", MXU_LENGTHS)
+def test_gf_matmul_mxu_kernel_matches_plain(cuda, k, m, n):
+    rng = np.random.default_rng(k * 100 + m + n)
+    bigmat = torch.from_numpy(rng.integers(0, 2, (8 * m, 8 * k), dtype=np.int8)).to(cuda)
+    bits = torch.from_numpy(rng.integers(0, 2, (8 * k, n), dtype=np.int8)).to(cuda)
+    before = ge.gf_matmul_mxu.launches
+    got = ge.gf_matmul_mxu(bigmat, bits)
+    torch.cuda.synchronize()
+    assert ge.gf_matmul_mxu.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == (8 * m, n)
+    assert torch.equal(got, ge.gf_matmul_mxu_plain(bigmat, bits))
+
+
+def test_gf_matmul_mxu_any_int8_values_and_unaligned_rows(cuda):
+    """The int8 dot mod 2 for values beyond 0/1, and a bits tensor whose
+    rows do not start on 4-byte boundaries (the byte path)."""
+    rng = np.random.default_rng(5)
+    bigmat = torch.from_numpy(rng.integers(-128, 128, (24, 48), dtype=np.int8)).to(cuda)
+    flat = torch.from_numpy(rng.integers(-128, 128, 48 * 1001 + 3, dtype=np.int8)).to(cuda)
+    bits = flat[3:].view(48, 1001)
+    want = (bigmat.cpu().numpy().astype(np.int64) @ bits.cpu().numpy().astype(np.int64)) & 1
+    got = ge.gf_matmul_mxu(bigmat, bits)
+    assert np.array_equal(got.cpu().numpy(), want.astype(np.int8))
+    assert torch.equal(got, ge.gf_matmul_mxu_plain(bigmat, bits))
+
+
+@pytest.mark.parametrize("k,m", [(3, 2), (6, 3)])
+@pytest.mark.parametrize("length", [1, 33, 1000, 1 << 20])
+def test_rs_encode_mxu_on_card_matches_rs_encode(cuda, k, m, length):
+    data = np.random.default_rng(length).integers(0, 256, (k, length), dtype=np.uint8)
+    got = ops.rs_encode_mxu(data, k, m, device=cuda)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, ops.rs_encode(data, k, m, device=cuda))
+
+
+def test_gf_matmul_mxu_refuses_operands_the_kernel_does_not_take(cuda):
+    ones = torch.ones((24, 48), dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        ge.gf_matmul_mxu(ones, torch.ones((48, 8), dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError):
+        ge.gf_matmul_mxu(ones, torch.ones((40, 8), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError):
+        big = torch.ones((8, 2056), dtype=torch.int8, device=cuda)
+        ge.gf_matmul_mxu(big, torch.ones((2056, 8), dtype=torch.int8, device=cuda))
+
+
+# -- flash attention ------------------------------------------------------------------
+
+
+HEAD_DIMS = [(d, dv) for d in fa.SUPPORTED_D for dv in fa.SUPPORTED_DV]
+#: |got - want| <= rtol |want| + row_atol rms(want's row) + atol, and the
+#: relative RMS error at most rel_rms (as chip_smoke.py's SAME_ARITHMETIC)
+TOLERANCE = {
+    torch.float32: {"rtol": 3e-4, "row_atol": 0.0, "atol": 3e-4, "rel_rms": 1e-5},
+    torch.bfloat16: {"rtol": 2 ** -7, "row_atol": 1e-3, "atol": 0.0, "rel_rms": 5e-4},
+}
+
+
+def _qkv(rng, b, s, h, hkv, d, dv, dtype, device):
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device=device, dtype=dtype)
+
+    return draw((b, s, h, d)), draw((b, s, hkv, d)), draw((b, s, hkv, dv))
+
+
+def _assert_close(got, want, dtype):
+    tol = TOLERANCE[dtype]
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    diff = (got - want).abs()
+    row_rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+    allowed = tol["rtol"] * want.abs() + tol["row_atol"] * row_rms + tol["atol"]
+    worst = torch.where(diff == 0, 0.0, diff / allowed).max()
+    assert float(worst) <= 1.0, f"max |err| {float(diff.max())}, {float(worst)} of the allowance"
+    assert float(diff.norm()) <= tol["rel_rms"] * float(want.norm())
+
+
+@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 1500])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_kernel_matches_plain(cuda, d, dv, s, causal, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain version's fp32 matmuls
+    rng = np.random.default_rng(d * 1000 + dv + s)
+    q, k, v = _qkv(rng, 2, s, 4, 2, d, dv, dtype, cuda)
+    before = fa.flash_attention_fwd.launches
+    got = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, s, 4, dv)
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_reads_strided_layouts(cuda, dtype):
+    """q/k/v as (B,S,H,D) views of (B,H,S,D) storage: read through strides."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(rng, 2, 300, 8, 2, 128, 128, dtype, cuda))
+    assert not q.is_contiguous()
+    got = fa.flash_attention_fwd(q, k, v, True)
+    _assert_close(got, fa.flash_attention_fwd_plain(q.contiguous(), k.contiguous(),
+                                                    v.contiguous(), True), dtype)
+
+
+def test_ops_flash_attention_on_card_launches_the_kernel(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    q, k, v = (t.numpy() for t in _qkv(rng, 1, 130, 4, 4, 64, 64, torch.float32, "cpu"))
+    before = fa.flash_attention_fwd.launches
+    got = ops.flash_attention(q, k, v, device=cuda)
+    assert fa.flash_attention_fwd.launches == before + 1
+    on_card = [torch.from_numpy(x).to(cuda) for x in (q, k, v)]
+    _assert_close(got, fa.flash_attention_fwd_plain(*on_card, True), torch.float32)
+    # across devices, the reference's elementwise bound: the host CPU's fp32
+    # products need not round as the card's do
+    want = ops.flash_attention(q, k, v, backend="kernel", device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)
+
+
+def test_flash_attention_is_forward_only_on_card(cuda):
+    rng = np.random.default_rng(14)
+    q, k, v = _qkv(rng, 1, 64, 4, 2, 64, 64, torch.bfloat16, cuda)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_fwd(q.requires_grad_(), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v, device=cuda)
+    assert fa.flash_attention_fwd.launches == before
+    with torch.no_grad():
+        got = ops.flash_attention(q, k, v, device=cuda)
+    assert fa.flash_attention_fwd.launches == before + 1
+    _assert_close(got, fa.flash_attention_fwd_plain(q.detach(), k, v, True), torch.bfloat16)
+
+
+def test_flash_attention_refuses_operands_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(13)
+    q, k, v = _qkv(rng, 1, 64, 4, 2, 128, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd(q[..., :96], k[..., :96], v)
+    with pytest.raises(ValueError, match="share B and S"):
+        fa.flash_attention_fwd(q, k[:, :32], v[:, :32])
+    with pytest.raises(TypeError, match="dtypes differ"):
+        fa.flash_attention_fwd(q, k.float(), v)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_fwd(q[:, :, :3], k, v)

@@ -90,6 +90,18 @@ def test_single_stripe_ops_match_reference():
         _np(pt_ops.gf_matmul_bytes(parity, data, backend="ref", device=CPU)), want)
 
 
+@pytest.mark.parametrize("k,m", [(3, 2), (6, 3)])
+@pytest.mark.parametrize("length", LENGTHS)
+def test_rs_encode_mxu_matches_reference_and_rs_code(k, m, length):
+    """The bit-matrix encode: unpack to bits, GF(2) product, pack back."""
+    data = _rand(3000 * k + length, (k, length))
+    got = pt_ops.rs_encode_mxu(data, k, m, device=CPU)
+    assert got.dtype == torch.uint8 and got.shape == (m, length)
+    np.testing.assert_array_equal(_np(got),
+                                  _np(jx_ops.rs_encode_mxu(data, k, m, block_n=128)))
+    np.testing.assert_array_equal(_np(got), jx_erasure.RSCode(k, m).encode(data))
+
+
 def test_zero_parity_rows_and_empty_length():
     data = _rand(6, (2, 4, 0))
     assert pt_ops.rs_encode_stripes(data, 4, 2, device=CPU).shape == (2, 2, 0)

@@ -4,7 +4,9 @@
     ``repro``; (b) importing the port leaves both out of ``sys.modules``;
 (c) every module the port copies verbatim still equals its ``repro``
     source once ``repro.`` reads ``repro_torch.``, so drift shows;
-(d) without a GPU, the entry points raise unless asked for the CPU, and
+(d) without a GPU, the entry points (the data plane's, ``ops.rs_encode_mxu``,
+    ``ops.flash_attention`` and the layers' tensor makers ``rope_freqs``,
+    ``rmsnorm_init``, ``layernorm_init``) raise unless asked for the CPU, and
     never quietly compute there; the CPU path never builds a kernel.
 """
 
@@ -74,6 +76,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.checkpoint.storage, repro_torch.policy\n"
         "import repro_torch.membership, repro_torch.namenode\n"
+        "import repro_torch.models, repro_torch.models.attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -99,14 +102,18 @@ def no_gpu():
 def plain_forbidden(monkeypatch):
     """Make every plain version raise, so an entry point that quietly ran on
     the CPU instead of raising would show."""
-    from repro_torch.kernels import gf256_encode, ref, xor_reduce
+    from repro_torch.kernels import flash_attention, gf256_encode, ref, xor_reduce
+    from repro_torch.models import attention
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran")
 
     for module, name in [(gf256_encode, "gf_matmul_bytes_batched_plain"),
                          (gf256_encode, "gf_scale_bytes_plain"),
+                         (gf256_encode, "gf_matmul_mxu_plain"),
                          (xor_reduce, "xor_reduce_bytes_batched_plain"),
+                         (flash_attention, "flash_attention_fwd_plain"),
+                         (attention, "blockwise_attention"),
                          (ref, "gf_matmul_batched_ref")]:
         monkeypatch.setattr(module, name, refuse)
 
@@ -115,6 +122,7 @@ def test_entry_points_without_gpu_raise_unless_asked_for_cpu(no_gpu, plain_forbi
     from repro_torch.checkpoint.storage import StorageCluster
     from repro_torch.core.erasure import RSCode, stream_encode
     from repro_torch.kernels import ops
+    from repro_torch.models import layers
 
     data = np.zeros((2, 3, 64), np.uint8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -131,6 +139,16 @@ def test_entry_points_without_gpu_raise_unless_asked_for_cpu(no_gpu, plain_forbi
         StorageCluster(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StorageCluster(8, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.rs_encode_mxu(data[0], 3, 2)
+    qkv = [np.zeros((1, 8, 2, 64), np.float32)] * 3
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.flash_attention(*qkv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.flash_attention(*qkv, backend="kernel")
+    for make in (layers.rope_freqs, layers.rmsnorm_init, layers.layernorm_init):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(64)
 
 
 def test_numpy_backend_stays_selectable_without_gpu(no_gpu):
@@ -158,3 +176,8 @@ def test_cpu_path_never_builds_a_kernel(monkeypatch):
     assert np.array_equal(stream_encode(code, data[0], 32, backend="torch", device="cpu"),
                           parity[0])
     assert ops.xor_reduce_bytes(data[0], device="cpu").shape == (99,)
+    assert np.array_equal(ops.rs_encode_mxu(data[0], 3, 2, device="cpu").numpy(), parity[0])
+    qkv = [np.random.default_rng(i).standard_normal((1, 8, 2, 64)).astype(np.float32)
+           for i in range(3)]
+    assert ops.flash_attention(*qkv, device="cpu").shape == (1, 8, 2, 64)
+    assert ops.flash_attention(*qkv, backend="kernel", device="cpu").shape == (1, 8, 2, 64)
