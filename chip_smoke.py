@@ -15,7 +15,10 @@ deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
 ``src/repro/configs/registry.py``.
 
 1. Prints the card's name and power limit, builds the four kernel sources
-   (one ``nvcc`` per source, all at once) and prints each build time.
+   (one ``nvcc`` per source, all at once) and prints each build time; for
+   the flash library, ptxas's registers and spills per tensor-core
+   instantiation and its HGMMA (wgmma) instructions from ``cuobjdump
+   -sass``, failing if a bf16 tensor-core instantiation has none.
 2. Holds every kernel against its plain PyTorch version on the card.
    Data plane, bit-exact (integer work, tolerance 0): RS(6,3) encode of
    256 stripes of 1 MiB cells, their decode after losing cells (0, 1, 2),
@@ -97,8 +100,8 @@ SAME_ARITHMETIC = {
 # few 1e-3 of its RMS.
 OTHER_ROUNDING = {"rtol": 2 ** -7, "row_atol": 5e-2, "atol": 0.0, "rel_rms": 1e-2}
 # flash-attention cases in which faults are planted, to show the tolerance
-# rejects them: whisper's ragged S (1500 keys, 36 past the last full tile) and
-# prefill_32k's long rows, where one tile is 64 of up to 32768 keys
+# rejects them: whisper's ragged S (1500 keys, 92 past the last full 128-key
+# tile) and prefill_32k's long rows, where one tile is 128 of up to 32768 keys
 PLANTED_FAULT_CASES = ("whisper-base encoder", "yi-9b prefill_32k")
 # flash attention at supported models' widths (src/repro/configs/registry.py):
 # (case, B, S, H, Hkv, D, Dv, dtype, causal, kernel runs, plain runs).  The
@@ -194,6 +197,48 @@ def measure(name, source, replaces, kernel, plain, args, nbytes, shape, extra_ch
     print(f"  {name} {shape}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
           f"bound {row['bound_ms']:.4f} ms), max |err| {err}", flush=True)
     return row
+
+
+def inspect_flash_build() -> dict:
+    """What the compiler made of the flash library: ptxas's registers and
+    spills for each tensor-core instantiation, and the HGMMA (wgmma)
+    instructions in each one's SASS (``cuobjdump -sass``).  Fails if a
+    tensor-core instantiation has none: its products would not run on the
+    tensor cores."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import SUPPORTED_D, SUPPORTED_DV
+
+    log = _build.LOGS.get("flash_attention", "")
+    usage, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+        elif current and ("registers" in line or "spill" in line):
+            usage.setdefault(current, []).append(line.split(":", 1)[-1].strip())
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            hgmma[current] = 0
+        elif current and "HGMMA" in line:
+            hgmma[current] += 1
+    tc = {name: n for name, n in hgmma.items() if "flash_fwd_tc" in name}
+    pairs = len(SUPPORTED_D) * len(SUPPORTED_DV)
+    check(len(tc) == pairs, f"expected {pairs} tensor-core instantiations in the flash "
+          f"library, found {sorted(tc)}")
+    check(all(n > 0 for n in tc.values()), f"a tensor-core flash body has no HGMMA: {tc}")
+    simt = {name: n for name, n in hgmma.items() if "flash_fwd_kernel" in name}
+    print(f"  flash library: HGMMA per tensor-core instantiation {sorted(set(tc.values()))} "
+          f"({sum(tc.values())} in {len(tc)}), in the fp32 SIMT body {sum(simt.values())}",
+          flush=True)
+    for name, lines in usage.items():
+        if "flash_fwd_tc" in name:
+            print(f"    ptxas {name[-60:]}: {'; '.join(lines)}", flush=True)
+    return {"hgmma": tc, "hgmma_simt": simt,
+            "ptxas": {name: lines for name, lines in usage.items() if "flash" in name}}
 
 
 def check_kernels(dev) -> tuple[list[dict], dict]:
@@ -305,45 +350,35 @@ def assert_close(got, want, tol: dict, what: str) -> dict:
     return {"max_abs_err": err, "tolerance_share": share, "rel_rms_err": rel}
 
 
-def plain_at_offset(q, k, v, causal: bool, q_offset: int):
-    """The plain version's arithmetic for queries at positions q_offset + i
-    against all of k/v (the kernel's tiles, q scaled in fp32)."""
-    from repro_torch.kernels.flash_attention import KV_TILE
-    from repro_torch.models.attention import _flash_fwd_scan, _group_q
-
-    b, s, h, d = q.shape
-    qg = _group_q(q.float() * (1.0 / math.sqrt(d)), k.shape[2])
-    out, _ = _flash_fwd_scan(qg, k, v, causal, KV_TILE, q_offset)
-    return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
-
-
 def planted_faults(q, k, v, causal: bool, got, tol: dict) -> dict:
     """What a kernel with a planted fault would return, computed by the plain
     arithmetic, held against the kernel's output ``got``: each must fail the
     tolerance the kernel passed.  Returns each fault's closeness."""
     import torch
 
-    from repro_torch.kernels.flash_attention import KV_TILE
+    from repro_torch.kernels import flash_attention as fa
 
     s = q.shape[1]
+    tile = fa.kv_tile(q.dtype)
     faults = {}
-    if not causal and s % KV_TILE:
+    if not causal and s % tile:
         # the kv >= S mask dropped: the last tile's zero-filled keys score 0
-        pad = torch.zeros_like(k[:, :KV_TILE - s % KV_TILE])
+        pad = torch.zeros_like(k[:, :tile - s % tile])
         padv = torch.zeros_like(v[:, :pad.shape[1]])
-        faults["mask of keys >= S dropped"] = plain_at_offset(
-            q, torch.cat([k, pad], 1), torch.cat([v, padv], 1), False, 0)
+        faults["mask of keys >= S dropped"] = fa.flash_attention_fwd_plain(
+            q, torch.cat([k, pad], 1), torch.cat([v, padv], 1), False)
     if causal:
-        def skip(tile: int, first_row: int):
-            """q rows from first_row on skip KV tile ``tile``."""
-            lo, hi = tile * KV_TILE, (tile + 1) * KV_TILE
+        def skip(skipped: int, first_row: int):
+            """q rows from first_row on skip KV tile ``skipped``."""
+            lo, hi = skipped * tile, (skipped + 1) * tile
             k2, v2 = torch.cat([k[:, :lo], k[:, hi:]], 1), torch.cat([v[:, :lo], v[:, hi:]], 1)
-            rest = plain_at_offset(q[:, first_row:], k2, v2, True, first_row - KV_TILE)
+            rest = fa.flash_attention_fwd_plain(q[:, first_row:], k2, v2, True,
+                                                q_offset=first_row - tile)
             return torch.cat([got[:, :first_row], rest], 1)
 
-        mid = s // 2 // KV_TILE
-        faults["last q tile skips KV tile 0"] = skip(0, s - KV_TILE)
-        faults[f"q tiles past {mid} skip KV tile {mid}"] = skip(mid, (mid + 1) * KV_TILE)
+        mid = s // 2 // tile
+        faults["last q tile skips KV tile 0"] = skip(0, s - tile)
+        faults[f"q tiles past {mid} skip KV tile {mid}"] = skip(mid, (mid + 1) * tile)
     out = {}
     for name, wrong in faults.items():
         err, share, rel = closeness(wrong, got, tol)
@@ -384,6 +419,9 @@ def flash_case(dev, gen, case) -> dict:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+    res["tflops"] = flops / res["ms"] / 1e9
+    if dtype == "bfloat16":
+        res["smem_per_block"] = fa.tc_smem_bytes(d, dv)
     if faults:
         res["planted_faults"] = faults
     # the yardstick: one PyTorch call computing the same function on (B,H,S,D)
@@ -408,7 +446,8 @@ def flash_case(dev, gen, case) -> dict:
     torch.cuda.empty_cache()
     lib = "refused" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
     print(f"  flash_attention_fwd {name} {dtype} {'causal' if causal else 'full'} "
-          f"{res['shape']}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f} ms, bound "
+          f"{res['shape']}: {res['ms']:.3f} ms = {res['tflops']:.1f} TFLOP/s (plain "
+          f"{res['plain_ms']:.3f} ms, bound "
           f"{res['bound_ms']:.3f} ms by {res['bound_by']}, library {lib}), max |err| "
           f"{close['max_abs_err']:.3g} ({close['tolerance_share']:.3g} of the allowance), "
           f"relative RMS error {close['rel_rms_err']:.3g}", flush=True)
@@ -699,11 +738,14 @@ def main() -> int:
     per_source = _build.build()
     print(f"phase 1: built {sorted(per_source)} in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})", flush=True)
+    flash_build = inspect_flash_build()
 
     print("phase 2: kernels against their plain versions", flush=True)
     dataplane_rows, _ = check_kernels(dev)
     torch.cuda.empty_cache()
     attention_rows = check_attention_kernels(dev)
+    attention_rows[0]["hgmma"] = sum(flash_build["hgmma"].values())
+    attention_rows[0]["nvcc_s"] = per_source.get("flash_attention")
 
     counters = {fn.__name__: fn for fn in (*ge.KERNELS, *xr.KERNELS, *fa.KERNELS)}
     print("phase 3: data-plane main path", flush=True)
@@ -722,7 +764,7 @@ def main() -> int:
     torch.cuda.synchronize()
     count_launches(attention_rows, counters, "attention")
 
-    print(json.dumps({"cluster": cluster, "attention": attention}))
+    print(json.dumps({"cluster": cluster, "attention": attention, "flash_build": flash_build}))
     print(card)
     print(json.dumps({"kernels": dataplane_rows + attention_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,10 +25,13 @@ SOURCES = ("gf256_encode", "xor_reduce", "flash_attention", "gf_mxu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",                       # registers, spills and shared memory per kernel
 )
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: the compiler's output of each library built by this process
+LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -70,6 +73,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, float]:
     for name, (proc, tmp, target, t0) in started.items():
         output, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        LOGS[name] = output
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{output}")
             tmp.unlink(missing_ok=True)

@@ -6,85 +6,489 @@
 // Computes, for q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv), bf16 or fp32:
 //   out[b,i,h,:] = softmax_j(scale * q[b,i,h,:] . k[b,j,h/rep,:]) . v[b,j,h/rep,:]
 // with rep = H / Hkv (grouped-query heads, KV never repeated in memory), an
-// optional causal mask (j <= i), fp32 accumulation, q upcast to fp32 before
-// the scaling, and p rounded to v's dtype before P.V, all as the TPU kernel
-// does.  The output has q's dtype and is (B,S,H,Dv), contiguous.
+// optional causal mask (j <= i), fp32 accumulation, the scale applied in
+// fp32, and p rounded to v's dtype before P.V (the row sum l taken from the
+// unrounded p), all as the TPU kernel does.  The output has q's dtype and
+// is (B,S,H,Dv), contiguous.
 //
 // Bound on this card: operations.  A causal pass does B*H*S*(S+1)/2 * 2*(D+Dv)
 // flops over (B*S*(H*D + Hkv*(D+Dv)) + B*S*H*Dv) * sizeof(T) bytes, between
 // S/4 (H = Hkv) and S/2 (large rep) flops per byte in bf16: above the H100's
 // ridge point (~295 flops/byte in bf16) at every sequence length the models
-// run.
+// run.  So the products must run on the tensor cores.
 //
-// Design (a simple kernel that is right first; tensor cores come later):
-//  * One block of 256 threads per (b, h, 64-row q tile), on a 1-D grid
-//    (no index on gridDim.y/z, which cap at 65535), the heaviest causal
-//    tiles first.  A loop over 64-row KV tiles inside the block takes the
-//    place of the TPU's sequential kv grid axis, so (m, l, acc) live in
-//    registers for the block's whole life; with a causal mask the loop
-//    stops at the diagonal tile (the TPU kernel's fully masked tiles add
-//    exactly 0).
-//  * The q, k, v tensors are read in their (B,S,H,D) layout through
-//    strides (64-bit offsets), with no transpose and no padding pass: rows
-//    at or past S load as zeros, masked keys score -1e30, and q rows at or
-//    past S are not stored.
+// Two bodies, chosen by dtype in the C entry point (no fallback from one to
+// the other):
+//
+// bf16, the tensor-core body (namespace tc):
+//  * One block of 384 threads per (b, h, 128-row q tile), on a 1-D grid
+//    ordered so that the heaviest causal q tiles of every (b, h) come first
+//    (neighbouring blocks then share their KV heads' tiles in L2).  The
+//    block walks 128-key KV tiles in ascending order (the plain version's
+//    order, so the running max, and with it every rounded p, is the same);
+//    with a causal mask it stops at the diagonal tile.
+//  * Warp specialisation: warpgroup 0 is the producer (setmaxnreg 24), whose
+//    one thread loads Q once and K/V tiles into a ring of 2 stages by TMA,
+//    with full (TMA bytes) and empty (256 consumer-thread arrivals)
+//    mbarriers per stage.  Warpgroups 1 and 2 are consumers (setmaxnreg
+//    240), each owning 64 q rows: S = Q.K^T by wgmma m64n128k16 with Q and
+//    K K-major in shared memory; scale, mask (only on the diagonal tile and
+//    the tile holding S), online softmax in fp32 registers; p rounded to
+//    bf16 in registers, where the accumulator fragment of S is already the
+//    A fragment of P.V; O += P.V by wgmma m64n{Dv}k16 with V read MN-major
+//    from its row-major tile (the transpose-B bit, no transpose pass).
+//    A consumer issues tile t's Q.K^T and tile t-1's P.V together and runs
+//    tile t's softmax while the tensor cores do that P.V (the arithmetic,
+//    and so every bit of the output, is that of doing them in turn).
+//  * The (B,S,H,D) layout is read through strides by 4-D tensor maps (one
+//    per operand and column chunk) encoded on the host per call: rows at or
+//    past S load as zeros, keys at or past S score -1e30.  Rows are cut in
+//    64-column chunks with the 128-byte swizzle and, for a width of 80, one
+//    16-column chunk with the 32-byte swizzle.  TMA needs 16-byte aligned
+//    base addresses and strides; the Python wrapper copies other operands.
+//  * Shared memory: Q 128 x D, 2 stages of K 128 x D and V 128 x Dv, bf16:
+//    208 KiB at D = 192, Dv = 128 (of the 227 KiB a block may opt into).
+//
+// fp32, the SIMT body (namespace simt): the tensor cores have no exact fp32
+// (TF32 keeps 10 mantissa bits), so fp32 FMAs on the CUDA cores:
+//  * One block of 256 threads per (b, h, 64-row q tile), on a 1-D grid,
+//    the heaviest causal tiles first, looping over 64-key KV tiles.
 //  * Tiles are staged in shared memory as fp32 (q pre-scaled); the K and V
 //    tiles share one buffer.  Each thread owns a 4x4 patch of the 64x64
 //    score tile (rows 4*ty+i, key columns tx+16*j) and the same 4 rows of
 //    the output (columns tx+16*j): fp32 FMAs over float4 shared reads,
 //    row max and row sum over the 16 lanes of a half-warp by shuffles.
-//  * The largest set (D=192, Dv=128) takes 115 KiB of shared memory, above
-//    the 48 KiB default, so every launch opts in first and the host
-//    function returns cudaGetLastError() of the launch.
+//  * The largest set (D=192, Dv=128) takes 115 KiB of shared memory.
+//
+// Every launch opts in to its shared memory first, and the host function
+// returns cudaGetLastError() of the launch.
 
+#include <algorithm>
+#include <type_traits>
 #include <cmath>
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "bytes.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------------------
+// bf16: the tensor-core body
+// ---------------------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kThreads = 384;    // producer warpgroup + 2 consumer warpgroups
+constexpr int kBQ = 128;         // query rows per block, 64 per consumer
+constexpr int kBK = 128;         // keys per KV tile
+constexpr int kStages = 2;       // K/V ring
+constexpr int kWideBytes = kBK * 128;   // a 64-column chunk of 128 rows (128B swizzle)
+constexpr int kNarrowBytes = kBK * 32;  // a 16-column chunk of 128 rows (32B swizzle)
+static_assert(kBQ == kBK, "a q tile and a KV tile have the same rows");
+
+// A 128-row tile of W bf16 columns in shared memory: W / 64 chunks of 64
+// columns, then (W % 64) / 16 chunks of 16.
+template <int W> struct Tile {
+  static constexpr int kWide = W / 64;
+  static constexpr int kNarrow = (W % 64) / 16;
+  static constexpr uint32_t kBytes = kWide * kWideBytes + kNarrow * kNarrowBytes;
+  static_assert(W % 64 == 0 || W % 64 == 16, "widths are 64a + 16b with b <= 1");
+};
+
+// Where the head, row (sequence) and batch dims sit (1..3) in an operand's
+// 4-D tensor map; the innermost dim 0 is the head dim.
+struct Perm {
+  int h, s, b;
+};
+
+struct Maps {              // one operand: its 64- and 16-column boxes
+  CUtensorMap wide, narrow;
+};
+
+__device__ __forceinline__ int pick(const Perm& p, int dim, int head, int row, int batch) {
+  return p.h == dim ? head : p.s == dim ? row : batch;
+}
+
+// TMA the 128 rows row0.. of one head into a Tile<W> at `dst`
+template <int W>
+__device__ __forceinline__ void load_tile(uint32_t dst, const Maps& m, const Perm& p,
+                                          uint32_t bar, int head, int row0, int batch) {
+  const int c1 = pick(p, 1, head, row0, batch), c2 = pick(p, 2, head, row0, batch),
+            c3 = pick(p, 3, head, row0, batch);
+#pragma unroll
+  for (int i = 0; i < Tile<W>::kWide; ++i)
+    tma_load_4d(dst + i * kWideBytes, &m.wide, bar, 64 * i, c1, c2, c3);
+  if (Tile<W>::kNarrow)
+    tma_load_4d(dst + Tile<W>::kWide * kWideBytes, &m.narrow, bar, 64 * Tile<W>::kWide, c1, c2,
+                c3);
+}
+
+// K-major descriptor of k16 step ks of a Tile<W>, starting `row` rows in
+template <int W>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int ks, int row) {
+  if (ks < 4 * Tile<W>::kWide)
+    return smem_desc(tile + (ks / 4) * kWideBytes + row * 128 + (ks % 4) * 32, 16, 1024,
+                     kSwizzle128);
+  return smem_desc(tile + Tile<W>::kWide * kWideBytes + row * 32, 16, 256, kSwizzle32);
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
+             const __grid_constant__ Maps mv, Perm pq, Perm pk, Perm pv,
+             __nv_bfloat16* __restrict__ o, int S, int H, int rep, int nq, int bh_count,
+             float scale, int causal) {
+  using TQ = Tile<D>;
+  using TV = Tile<DV>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1 KiB
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + TQ::kBytes;
+  const uint32_t sV = sK + kStages * TQ::kBytes;
+  const uint32_t bars = sV + kStages * TV::kBytes;
+  const uint32_t full_q = bars, full_k = bars + 8, full_v = bars + 24, empty = bars + 40;
+
+  const int bid = blockIdx.x;
+  const int bh = bid % bh_count;
+  const int qt = nq - 1 - bid / bh_count;     // heaviest causal q tiles first
+  const int h = bh % H, b = bh / H;
+  const int q0 = qt * kBQ;
+  const int nk = (S + kBK - 1) / kBK;
+  const int last = causal ? min(nk - 1, qt) : nk - 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty + 8 * st, 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int hk = h / rep;
+      mbar_expect_tx(full_q, TQ::kBytes);
+      load_tile<D>(sQ, mq, pq, full_q, h, q0, b);
+      for (int t = 0; t <= last; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(empty + 8 * st, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_k + 8 * st, TQ::kBytes);
+        load_tile<D>(sK + st * TQ::kBytes, mk, pk, full_k + 8 * st, hk, t * kBK, b);
+        mbar_expect_tx(full_v + 8 * st, TV::kBytes);
+        load_tile<DV>(sV + st * TV::kBytes, mv, pv, full_v + 8 * st, hk, t * kBK, b);
+      }
+    }
+  } else {
+    // consumer c: q rows q0 + 64c .. q0 + 64c + 63
+    setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int row0 = q0 + 64 * c + 16 * (tid / 32) + (tid % 32) / 4;   // and row0 + 8
+    const int col0 = 2 * (tid % 4);
+    float s[64];                  // scores, then p: 64 rows x 128 keys over the warpgroup
+    float acc[DV / 2];            // output: 64 rows x DV
+    uint32_t p[32];               // p in bf16 pairs: the A fragments of P.V
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+
+    // S = Q_c . K^T of tile t, issued and committed (not waited for)
+    const auto issue_qk = [&](int t) {
+      const int st = t % kStages;
+      mbar_wait(full_k + 8 * st, (t / kStages) & 1);
+      fence_regs<64>(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_n128(s, kmajor_desc<D>(sQ, ks, 64 * c),
+                      kmajor_desc<D>(sK + st * TQ::kBytes, ks, 0), ks > 0);
+      wgmma_commit();
+    };
+    // O += P . V of tile t, issued and committed (not waited for)
+    const auto issue_pv = [&](int t) {
+      const int st = t % kStages;
+      const uint32_t tv = sV + st * TV::kBytes;
+      mbar_wait(full_v + 8 * st, (t / kStages) & 1);
+      fence_regs<DV / 2>(acc);
+      fence_regs<32>(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        if constexpr (TV::kWide > 0) {
+          const uint64_t dv = smem_desc(tv + kk * 16 * 128, kWideBytes, 1024, kSwizzle128);
+          if constexpr (TV::kWide == 2) wgmma_rs_n128(acc, p + 4 * kk, dv);
+          else wgmma_rs_n64(acc, p + 4 * kk, dv);
+        }
+        if constexpr (TV::kNarrow) {
+          const uint64_t dv =
+              smem_desc(tv + TV::kWide * kWideBytes + kk * 16 * 32, 16, 256, kSwizzle32);
+          wgmma_rs_n16(acc + 32 * TV::kWide, p + 4 * kk, dv);
+        }
+      }
+      wgmma_commit();
+    };
+    // the online softmax of tile t's scores in s: p (unrounded) into s, the
+    // new max and row sum, and each row's rescaling factor into alpha
+    const auto softmax = [&](int t, float* alpha) {
+      const int k0 = t * kBK;
+      // scale in fp32; mask keys past S and, on the diagonal tile, keys after the row
+      const bool edge = k0 + kBK > S || (causal && t == qt);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        float x = s[e] * scale;
+        if (edge) {
+          const int key = k0 + 8 * (e / 4) + col0 + (e % 2);
+          const int row = row0 + 8 * ((e / 2) % 2);
+          if (key >= S || (causal && key > row)) x = kNegInf;
+        }
+        s[e] = x;
+      }
+      // the 4 lanes of a quad share a row
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        alpha[i] = expf(m[i] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const float e = expf(s[4 * j + 2 * i + cc] - m_new);
+            s[4 * j + 2 * i + cc] = e;
+            rs += e;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l[i] = l[i] * alpha[i] + rs;
+        m[i] = m_new;
+      }
+    };
+    // once the last P.V is done: rescale O, and round p to bf16 pairs
+    const auto rescale_and_pack = [&](const float* alpha) {
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e / 2];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(s[2 * r], s[2 * r + 1]);
+        p[r] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+    };
+
+    // Tile t's softmax runs while the tensor cores do tile t-1's P.V.
+    float alpha[2];
+    mbar_wait(full_q, 0);
+    issue_qk(0);
+    wgmma_wait<0>();
+    fence_regs<64>(s);
+    softmax(0, alpha);
+    rescale_and_pack(alpha);
+    for (int t = 1; t <= last; ++t) {
+      issue_qk(t);
+      issue_pv(t - 1);
+      wgmma_wait<1>();                        // S of tile t is in
+      fence_regs<64>(s);
+      softmax(t, alpha);
+      wgmma_wait<0>();                        // P.V of tile t-1 is done
+      fence_regs<DV / 2>(acc);
+      fence_regs<32>(p);
+      mbar_arrive(empty + 8 * ((t - 1) % kStages));   // this thread is done with the stage
+      rescale_and_pack(alpha);
+    }
+    issue_pv(last);
+    wgmma_wait<0>();
+    fence_regs<DV / 2>(acc);
+    fence_regs<32>(p);
+    mbar_arrive(empty + 8 * (last % kStages));
+
+    // out = acc / max(l, 1e-30) in fp32, rounded to bf16; rows at or past S are not stored
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= S) continue;
+      const float ll = fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* orow = o + ((int64_t(b) * S + row) * H + h) * DV + col0;
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] / ll, acc[4 * j + 2 * i + 1] / ll);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no libcuda link)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// An operand (B, S, heads, width) with element strides sb, ss, sh (unit
+// stride in the last dim), as the 4-D maps' (width, then the three outer
+// dims by ascending stride; a dim of extent 1 goes last, past all others).
+struct Operand {
+  const void* ptr;
+  int64_t width, heads, S, B, sb, ss, sh;
+};
+
+bool encode(const Operand& x, Maps* maps, Perm* perm) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  struct Dim { int64_t extent, stride; int which; };   // which: 0 head, 1 row, 2 batch
+  Dim dims[3] = {{x.heads, x.sh, 0}, {x.S, x.ss, 1}, {x.B, x.sb, 2}};
+  int64_t span = x.width;                               // elements past which nothing lies
+  for (const Dim& d : dims)
+    if (d.extent > 1) span = std::max(span, d.extent * d.stride);
+  for (Dim& d : dims)
+    if (d.extent == 1) d.stride = span;
+  std::stable_sort(dims, dims + 3, [](const Dim& a, const Dim& b) {
+    return (a.extent == 1) < (b.extent == 1) || ((a.extent == 1) == (b.extent == 1) &&
+                                                 a.stride < b.stride);
+  });
+  cuuint64_t extent[4] = {cuuint64_t(x.width), 0, 0, 0};
+  cuuint64_t stride[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  int* where[3] = {&perm->h, &perm->s, &perm->b};
+  for (int i = 0; i < 3; ++i) {
+    extent[i + 1] = cuuint64_t(dims[i].extent);
+    stride[i] = cuuint64_t(dims[i].stride) * sizeof(__nv_bfloat16);
+    box[i + 1] = dims[i].which == 1 ? kBK : 1;
+    *where[dims[i].which] = i + 1;
+  }
+  void* ptr = const_cast<void*>(x.ptr);
+  CUresult rc = fn(&maps->wide, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, extent, stride, box,
+                   unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) return false;
+  box[0] = 16;
+  rc = fn(&maps->narrow, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, extent, stride, box, unit,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS;
+}
+
+// dynamic shared memory of a block: alignment slack, Q, the K/V ring, 7 mbarriers
+template <int D, int DV> constexpr size_t smem_bytes() {
+  return 1024 + (1 + kStages) * Tile<D>::kBytes + kStages * Tile<DV>::kBytes + 64;
+}
+
+template <int D, int DV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t S,
+                   int64_t H, int64_t Hkv, const int64_t* st, bool causal, cudaStream_t stream) {
+  const int64_t nq = (S + kBQ - 1) / kBQ;
+  const int64_t blocks = B * H * nq;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  Maps mq, mk, mv;
+  Perm pq, pk, pv;
+  if (!encode({q, D, H, S, B, st[0], st[1], st[2]}, &mq, &pq) ||
+      !encode({k, D, Hkv, S, B, st[3], st[4], st[5]}, &mk, &pk) ||
+      !encode({v, DV, Hkv, S, B, st[6], st[7], st[8]}, &mv, &pv))
+    return cudaErrorInvalidValue;      // no driver entry point, or a map TMA refuses
+  const size_t smem = smem_bytes<D, DV>();
+  auto kernel = flash_fwd_tc<D, DV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const float scale = float(1.0 / std::sqrt(double(D)));
+  kernel<<<unsigned(blocks), kThreads, smem, stream>>>(
+      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), int(S), int(H), int(H / Hkv),
+      int(nq), int(B * H), scale, causal ? 1 : 0);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, int64_t B,
+                        int64_t S, int64_t H, int64_t Hkv, int64_t DV, const int64_t* st,
+                        bool causal, cudaStream_t stream) {
+  switch (DV) {
+    case 64: return launch<D, 64>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
+    case 80: return launch<D, 80>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
+    case 128: return launch<D, 128>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64_t B,
+                     int64_t S, int64_t H, int64_t Hkv, int64_t D, int64_t DV,
+                     const int64_t* st, bool causal, cudaStream_t stream) {
+  switch (D) {
+    case 64: return dispatch_dv<64>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
+    case 80: return dispatch_dv<80>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
+    case 128: return dispatch_dv<128>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
+    case 192: return dispatch_dv<192>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------------------
+// fp32: the SIMT body
+// ---------------------------------------------------------------------------------------
+
+namespace simt {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // key rows per KV tile
 constexpr int kPad = 4;          // floats of padding per shared row (float4-aligned)
-constexpr float kNegInf = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float lane(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// dst[r * ld + c] = scale * src[(s0 + r) * row_stride + c] in fp32 for the 64
+// dst[r * ld + c] = scale * src[(s0 + r) * row_stride + c] for the 64
 // rows r of a tile and the `width` columns c; rows at or past S are zero.
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* __restrict__ src, int64_t row_stride,
+__device__ void load_tile(float* dst, int ld, const float* __restrict__ src, int64_t row_stride,
                           int s0, int S, int width, float scale) {
   const int total = kBK * width;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int r = e / width;
     const int c = e - r * width;
     float x = 0.f;
-    if (s0 + r < S) x = to_f32<T>(src[int64_t(s0 + r) * row_stride + c]) * scale;
+    if (s0 + r < S) x = src[int64_t(s0 + r) * row_stride + c] * scale;
     dst[r * ld + c] = x;
   }
 }
 
-template <typename T, int DV>
+template <int DV>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int S, int H, int Hkv, int D, int nq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S, int H, int Hkv,
+                 int D, int nq,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -97,7 +501,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   constexpr int ldp = kBK + kPad;
   float* sQ = smem;                       // kBQ x ldq, q * scale
   float* sKV = sQ + kBQ * ldq;            // kBK x ldkv, K then V of one tile
-  float* sP = sKV + kBK * ldkv;           // kBQ x ldp, p in v's precision
+  float* sP = sKV + kBK * ldkv;           // kBQ x ldp, p
 
   const int64_t bid = blockIdx.x;
   const int qt = nq - 1 - int(bid % nq);  // heaviest causal tiles first
@@ -110,10 +514,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tx = threadIdx.x & 15;        // key / output columns tx + 16*j
   const int ty = threadIdx.x >> 4;        // query rows 4*ty + i
 
-  const T* qh = q + b * q_sb + int64_t(h) * q_sh;
-  const T* kh = k + b * k_sb + int64_t(hk) * k_sh;
-  const T* vh = v + b * v_sb + int64_t(hk) * v_sh;
-  load_tile<T>(sQ, ldq, qh, q_ss, q0, S, D, scale);
+  const float* qh = q + b * q_sb + int64_t(h) * q_sh;
+  const float* kh = k + b * k_sb + int64_t(hk) * k_sh;
+  const float* vh = v + b * v_sb + int64_t(hk) * v_sh;
+  load_tile(sQ, ldq, qh, q_ss, q0, S, D, scale);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -129,7 +533,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                      // the last tile's P.V is done with sKV, sP
-    load_tile<T>(sKV, ldkv, kh, k_ss, k0, S, D, 1.f);
+    load_tile(sKV, ldkv, kh, k_ss, k0, S, D, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -178,7 +582,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         rs += p;
-        sP[(4 * ty + i) * ldp + tx + 16 * j] = to_f32<T>(from_f32<T>(p));
+        sP[(4 * ty + i) * ldp + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -189,7 +593,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       m[i] = m_new;
     }
     __syncthreads();                      // every thread is done reading K
-    load_tile<T>(sKV, ldkv, vh, v_ss, k0, S, DV, 1.f);
+    load_tile(sKV, ldkv, vh, v_ss, k0, S, DV, 1.f);
     __syncthreads();
 
     for (int kk = 0; kk < kBK; kk += 4) {
@@ -216,13 +620,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qp = q0 + 4 * ty + i;
     if (qp >= S) continue;
     const float ll = fmaxf(l[i], 1e-30f);
-    T* orow = o + (b * S + qp) * o_ss + int64_t(h) * DV;
+    float* orow = o + (b * S + qp) * o_ss + int64_t(h) * DV;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / ll);
+    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[i][j] / ll;
   }
 }
 
-template <typename T, int DV>
+template <int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t S,
                    int64_t H, int64_t Hkv, int64_t D, const int64_t* strides, bool causal,
                    cudaStream_t stream) {
@@ -231,38 +635,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const int64_t ldq = D + kPad, ldkv = (D > DV ? D : DV) + kPad, ldp = kBK + kPad;
   const size_t smem = size_t(kBQ * ldq + kBK * ldkv + kBQ * ldp) * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, DV>;
+  auto kernel = flash_fwd_kernel<DV>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const float scale = float(1.0 / std::sqrt(double(D)));
   kernel<<<unsigned(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), int(S), int(H), int(Hkv), int(D), int(nq),
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), int(S), int(H), int(Hkv), int(D), int(nq),
       strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
       strides[6], strides[7], strides[8], scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, int64_t B,
-                        int64_t S, int64_t H, int64_t Hkv, int64_t D, int64_t DV,
-                        const int64_t* strides, bool causal, cudaStream_t stream) {
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64_t B,
+                     int64_t S, int64_t H, int64_t Hkv, int64_t D, int64_t DV,
+                     const int64_t* strides, bool causal, cudaStream_t stream) {
   switch (DV) {
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
+    case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
+    case 80: return launch<80>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
+    case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace simt
 
 }  // namespace
 
 // q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) with element strides
 // {q,k,v}_s{b,s,h} and unit stride in the last dim -> o (B,S,H,Dv),
-// contiguous.  dtype: 0 = fp32, 1 = bf16 (all four tensors).  The caller
-// checks shapes, H % Hkv == 0, D in {64, 80, 128, 192}, Dv in {64, 80, 128}
-// and B, S >= 1.
+// contiguous.  dtype: 0 = fp32 (the SIMT body), 1 = bf16 (the tensor-core
+// body; base addresses and strides 16-byte aligned).  The caller checks
+// shapes, H % Hkv == 0, D in {64, 80, 128, 192}, Dv in {64, 80, 128} and
+// B, S >= 1.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int64_t B, int64_t S, int64_t H, int64_t Hkv,
                                    int64_t D, int64_t DV, int64_t q_sb, int64_t q_ss,
@@ -274,9 +681,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const int64_t strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return int(dispatch_dv<float>(q, k, v, o, B, S, H, Hkv, D, DV, strides, causal != 0, st));
+    return int(simt::dispatch(q, k, v, o, B, S, H, Hkv, D, DV, strides, causal != 0, st));
   if (dtype == 1)
-    return int(dispatch_dv<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, D, DV, strides,
-                                          causal != 0, st));
+    return int(tc::dispatch(q, k, v, o, B, S, H, Hkv, D, DV, strides, causal != 0, st));
   return int(cudaErrorInvalidValue);
+}
+
+// Bytes of dynamic shared memory a block of the tensor-core body takes at
+// (D, DV), or 0 for a pair it does not take.
+extern "C" int64_t flash_attention_tc_smem_bytes(int64_t D, int64_t DV) {
+  int64_t bytes = 0;
+  const auto pick = [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (DV == 64) bytes = int64_t(tc::smem_bytes<kD, 64>());
+    if (DV == 80) bytes = int64_t(tc::smem_bytes<kD, 80>());
+    if (DV == 128) bytes = int64_t(tc::smem_bytes<kD, 128>());
+  };
+  if (D == 64) pick(std::integral_constant<int, 64>{});
+  if (D == 80) pick(std::integral_constant<int, 80>{});
+  if (D == 128) pick(std::integral_constant<int, 128>{});
+  if (D == 192) pick(std::integral_constant<int, 192>{});
+  return bytes;
 }

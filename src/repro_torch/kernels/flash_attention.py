@@ -16,12 +16,17 @@ scaling and p rounded to v's dtype before P.V, as the TPU kernel computes
 it.  (``models.attention.blockwise_attention`` scales q in q's dtype
 instead; in bf16 the two differ by that rounding.)
 
-Bound: operations (about S/4 to S/2 flops per byte in bf16).  Design: one
-block per (b, h, 64-row q tile), a loop over 64-row KV tiles inside it
-that stops at the diagonal when causal, the (B,S,H,D) layout read through
-strides with no transpose or padding pass, fp32 FMAs over shared-memory
-tiles; see the source's header.  The TPU tile arguments ``bq``/``bk`` are
-not carried over: the kernel picks its own tiles.
+Bound: operations (about S/4 to S/2 flops per byte in bf16).  Two bodies,
+chosen by dtype (see the source's header).  bf16 runs on the tensor cores:
+one block per (b, h, 128-row q tile) with a TMA producer warpgroup and two
+wgmma consumer warpgroups, walking ``KV_TILE`` = 128-key tiles; TMA reads
+the (B,S,H,D) layout through strides, and needs every base address and
+stride 16-byte aligned, so the wrapper copies an operand that is not (see
+:func:`needs_copy`).  fp32 stays on fp32 FMAs on the CUDA cores (the tensor
+cores have no exact fp32), walking ``FP32_KV_TILE`` = 64-key tiles.  The
+plain version walks the tiles of the body that the dtype selects
+(:func:`kv_tile`).  The TPU tile arguments ``bq``/``bk`` are not carried
+over: the kernel picks its own tiles.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel on the current stream or raises.  Either way it is
@@ -41,18 +46,50 @@ from repro_torch.kernels import _build
 #: head dims of the supported architectures (zamba2: 80; deepseek-v2 MLA: 192/128)
 SUPPORTED_D = (64, 80, 128, 192)
 SUPPORTED_DV = (64, 80, 128)
-#: keys per KV tile in the kernel (kBK in the source); the plain version walks the same
-KV_TILE = 64
+#: keys per KV tile of the bf16 (tensor-core) body, tc::kBK in the source
+KV_TILE = 128
+#: keys per KV tile of the fp32 (SIMT) body, simt::kBK in the source
+FP32_KV_TILE = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _INT, *[_I64] * 15, _INT, _PTR],
+    "flash_attention_tc_smem_bytes": [_I64, _I64],
 }
+
+
+def kv_tile(dtype: torch.dtype) -> int:
+    """Keys per KV tile of the kernel body that runs for ``dtype``."""
+    return FP32_KV_TILE if dtype == torch.float32 else KV_TILE
+
+
+def needs_copy(t: torch.Tensor) -> bool:
+    """Whether the wrapper hands the kernel a contiguous copy of operand ``t``.
+
+    Both bodies need unit stride in the head dim.  The bf16 body reads by
+    TMA, which takes only 16-byte aligned base addresses and 16-byte
+    multiples as strides: a (B,S,H) stride that is not, on a dim longer
+    than 1, or a base that is not, means a copy (a contiguous bf16 tensor
+    of a supported head dim always passes).
+    """
+    if t.stride(-1) != 1:
+        return True
+    if t.dtype != torch.bfloat16:
+        return False
+    size = t.element_size()
+    return t.data_ptr() % 16 != 0 or any(
+        n > 1 and (st <= 0 or st * size % 16) for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", _SIGNATURES)
+
+
+def tc_smem_bytes(d: int, dv: int) -> int:
+    """Dynamic shared memory of one block of the bf16 body at head dims
+    (d, dv), as the library computes it (builds the library)."""
+    return int(_lib().flash_attention_tc_smem_bytes(d, dv))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -81,20 +118,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              causal: bool = True) -> torch.Tensor:
-    """The TPU kernel's arithmetic in plain PyTorch, for any head dims.
+                              causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """The TPU kernel's function in plain PyTorch, rounded as the kernel body
+    that q's dtype selects rounds it, for any head dims.
 
-    ``blockwise_attention``'s online-softmax loop with q scaled in fp32, as
-    the kernel scales it, over the kernel's own ``KV_TILE``-key tiles: the
-    running max is then the kernel's after every tile, so each p rounds to
-    v's dtype as the kernel rounds it, and the two differ only in the order
-    of fp32 sums.  The score block stays (B, S, H, tile) however long S is.
+    ``blockwise_attention``'s online-softmax loop over the body's own KV
+    tiles (:func:`kv_tile`): the running max is then the kernel's after
+    every tile, so each p rounds to v's dtype as the kernel rounds it.  The
+    scores are taken as the body takes them: fp32 q scaled first, then fp32
+    products (the SIMT body); bf16 q . k with fp32 sums, on the card on the
+    tensor cores as the kernel's wgmma, then scaled in fp32 (the tensor-core
+    body).  The two then differ only in the order of fp32 sums.  Queries
+    sit at positions ``q_offset + i`` against all of k/v.  The score block
+    stays (B, S, H, tile) however long S is.
     """
     from repro_torch.models.attention import _flash_fwd_scan, _group_q
 
     b, s, h, d = q.shape
-    qg = _group_q(q.float() * (1.0 / math.sqrt(d)), k.shape[2])
-    out, _ = _flash_fwd_scan(qg, k, v, causal, KV_TILE, 0)
+    scale = 1.0 / math.sqrt(d)
+    tile = kv_tile(q.dtype)
+    if q.dtype == torch.float32:
+        out, _ = _flash_fwd_scan(_group_q(q * scale, k.shape[2]), k, v, causal, tile, q_offset)
+    else:
+        out, _ = _flash_fwd_scan(_group_q(q, k.shape[2]), k, v, causal, tile, q_offset, scale)
     return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
 
 
@@ -103,7 +149,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (B,S,H,Dv) in q's dtype.
 
     Forward only, like the TPU kernel: the call raises when autograd would
-    need a gradient through it (use ``blockwise_attention`` to train).
+    need a gradient through it (use ``blockwise_attention`` to train).  On
+    the card, an operand the kernel cannot read where it lies (see
+    :func:`needs_copy`: a head dim of non-unit stride; in bf16 a base
+    address or a (B,S,H) stride that is not a multiple of 16 bytes) is
+    first copied to a fresh contiguous tensor.
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -114,7 +164,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, _ = q.shape
     out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
     if out.numel():
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+        q, k, v = (t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
+                   for t in (q, k, v))
         lib = _lib()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream

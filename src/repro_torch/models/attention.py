@@ -68,10 +68,26 @@ def _causal_mask(start: int, width: int, sq: int, q_offset: int, device) -> torc
     return kv_pos[None, :] <= q_pos[:, None]
 
 
-def _flash_fwd_scan(qg, k, v, causal, block, q_offset):
+def _product_f32(qg, kc):
+    """Scores (B, Sq, Hkv, R, Sk) in fp32 of qg (B, Sq, Hkv, R, D) and kc
+    (B, Sk, Hkv, D) taken in their own dtype: on the card, a bf16 pair as
+    the tensor cores take it (bf16 products, fp32 sums), which is how the
+    flash kernel's wgmma rounds; otherwise exact products summed in fp32."""
+    if qg.dtype == torch.bfloat16 and qg.is_cuda:
+        b, sq, g, r, d = qg.shape
+        a = qg.permute(0, 2, 3, 1, 4).reshape(b * g, r * sq, d)
+        bt = kc.permute(0, 2, 3, 1).reshape(b * g, d, kc.shape[1])
+        out = torch.bmm(a, bt, out_dtype=torch.float32)
+        return out.reshape(b, g, r, sq, -1).permute(0, 3, 1, 2, 4)
+    return torch.einsum("bqgrd,bkgd->bqgrk", qg.float(), kc.float())
+
+
+def _flash_fwd_scan(qg, k, v, causal, block, q_offset, scale=None):
     """Online-softmax forward over KV blocks with grouped GQA heads.
 
-    qg: (B, Sq, Hkv, R, D) pre-scaled; k/v: (B, Skv, Hkv, D[v]).  A Python
+    qg: (B, Sq, Hkv, R, D) pre-scaled, or, given ``scale``, unscaled, the
+    scale then multiplying each fp32 score (see ``_product_f32``); k/v:
+    (B, Skv, Hkv, D[v]).  A Python
     loop over blocks takes the place of ``lax.scan``; the last block is
     sliced short instead of padded (padded keys add exactly 0).  With a
     causal mask, the query rows that see none of a block skip it (it would
@@ -91,7 +107,10 @@ def _flash_fwd_scan(qg, k, v, causal, block, q_offset):
             break
         kc = k[:, start:start + block]
         vc = v[:, start:start + block]
-        scores = torch.einsum("bqgrd,bkgd->bqgrk", q32[:, rows:], kc.float())
+        if scale is None:
+            scores = torch.einsum("bqgrd,bkgd->bqgrk", q32[:, rows:], kc.float())
+        else:
+            scores = _product_f32(qg[:, rows:], kc) * scale
         if causal:
             mask = _causal_mask(start, kc.shape[1], sq - rows, q_offset + rows, qg.device)
             scores = scores.masked_fill(~mask[None, :, None, None, :], NEG_INF)

@@ -403,6 +403,63 @@ def test_flash_plain_matches_reference_pallas_kernel(b, s, h, hkv, d, causal, bq
     _close(got, want, 3e-4)
 
 
+@pytest.mark.parametrize("b,s,h,hkv,causal", [
+    (1, 129, 4, 1, True), (1, 129, 4, 1, False),     # one key past a 128-key tile
+    (2, 300, 4, 2, True), (2, 300, 4, 2, False),     # ragged last tile (300 = 2 x 128 + 44)
+])
+def test_flash_plain_tile_walks_match_reference_pallas_kernel(b, s, h, hkv, causal):
+    """Both bodies' tile walks across several KV tiles and a ragged last
+    one, against the reference's kernel: the fp32 body's (q scaled first,
+    64-key tiles, through the wrapper's plain version) and the bf16 body's
+    (scores scaled after the product, 128-key tiles; fp32 inputs, so the
+    check isolates the walk from bf16 rounding)."""
+    from repro_torch.models.attention import _flash_fwd_scan, _group_q
+
+    q, k, v = _qkv(s + h, b, s, h, hkv, 16)
+    want = jx_flash_fwd(*map(jnp.asarray, (q, k, v)), causal=causal, bq=64, bk=128)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    _close(pt_flash.flash_attention_fwd_plain(tq, tk, tv, causal), want, 3e-4)
+    out, _ = _flash_fwd_scan(_group_q(tq, hkv), tk, tv, causal, pt_flash.KV_TILE, 0, 0.25)
+    _close(out.reshape(b, s, h, 16), want, 3e-4)
+
+
+def test_flash_kv_tile_follows_the_kernel_body():
+    """The plain version walks the tiles of the body the dtype selects."""
+    assert pt_flash.kv_tile(torch.bfloat16) == pt_flash.KV_TILE == 128
+    assert pt_flash.kv_tile(torch.float32) == pt_flash.FP32_KV_TILE == 64
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(36, 1, 200, 4, 2, 64))
+    from repro_torch.models.attention import _flash_fwd_scan, _group_q
+
+    out, _ = _flash_fwd_scan(_group_q(q, 2), k, v, True, 128, 0, 1 / 8)
+    assert torch.equal(pt_flash.flash_attention_fwd_plain(q, k, v, True),
+                       out.reshape(1, 200, 4, 64).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("case,copy", [
+    ("contiguous", False), ("transposed_storage", False), ("head_slice", False),
+    ("base_offset", True), ("odd_row_stride", True), ("strided_head_dim", True),
+    ("fp32_base_offset", False), ("fp32_strided_head_dim", True),
+])
+def test_flash_wrapper_copy_rule(case, copy):
+    """Which operands the wrapper copies before a launch: TMA (the bf16
+    body) takes 16-byte aligned bases and strides only; both bodies need a
+    unit-stride head dim.  The rule is pure Python, so it runs here."""
+    bf16 = torch.bfloat16
+    flat = torch.zeros(2 * 40 * 3 * 130 + 8, dtype=bf16)
+    x = {
+        "contiguous": lambda: flat[:2 * 40 * 3 * 64].view(2, 40, 3, 64),
+        "transposed_storage": lambda: flat[:2 * 3 * 40 * 64].view(2, 3, 40, 64).transpose(1, 2),
+        "head_slice": lambda: flat[:2 * 40 * 3 * 128].view(2, 40, 3, 128)[..., 64:],
+        "base_offset": lambda: flat[1:1 + 2 * 40 * 3 * 64].view(2, 40, 3, 64),
+        "odd_row_stride": lambda: flat[:2 * 40 * 3 * 65].view(2, 40, 3, 65)[..., :64],
+        "strided_head_dim": lambda: flat[:2 * 40 * 3 * 128].view(2, 40, 3, 64, 2)[..., 0],
+        "fp32_base_offset": lambda: flat.float()[1:1 + 2 * 40 * 3 * 64].view(2, 40, 3, 64),
+        "fp32_strided_head_dim":
+            lambda: flat.float()[:2 * 40 * 3 * 128].view(2, 40, 3, 64, 2)[..., 0],
+    }[case]()
+    assert pt_flash.needs_copy(x) is copy
+
+
 def test_flash_wrapper_on_cpu_tensors_matches_reference_pallas_kernel():
     """A supported head dim through the wrapper: CPU tensors take the plain
     version; ragged S = 40 against the reference's 16-row tiles."""

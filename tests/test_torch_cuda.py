@@ -204,7 +204,7 @@ def _assert_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("d,dv", HEAD_DIMS)
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 1500])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1500])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_flash_attention_kernel_matches_plain(cuda, d, dv, s, causal, dtype):
@@ -230,6 +230,38 @@ def test_flash_attention_reads_strided_layouts(cuda, dtype):
     got = fa.flash_attention_fwd(q, k, v, True)
     _assert_close(got, fa.flash_attention_fwd_plain(q.contiguous(), k.contiguous(),
                                                     v.contiguous(), True), dtype)
+
+
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_gqa_groups(cuda, rep, causal, dtype):
+    """Every query head reads kv head h // rep, over several q and KV tiles."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(100 + rep)
+    q, k, v = _qkv(rng, 2, 300, 2 * rep, 2, 128, 128, dtype, cuda)
+    got = fa.flash_attention_fwd(q, k, v, causal)
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal), dtype)
+
+
+@pytest.mark.parametrize("case", ["base", "stride", "head_dim"])
+def test_flash_attention_copies_operands_tma_cannot_read(cuda, case):
+    """bf16 operands whose base address or (B,S,H) stride is not a multiple
+    of 16 bytes, or whose head dim is strided, are copied first and give the
+    same result as their contiguous copies."""
+    rng = np.random.default_rng(15)
+    q, k, v = _qkv(rng, 2, 200, 4, 2, 64, 64, torch.bfloat16, cuda)
+    if case == "base":          # one element (2 bytes) into a flat buffer
+        flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+        k2 = flat[1:].view(k.shape).copy_(k)
+    elif case == "stride":      # rows 65 elements apart
+        k2 = torch.empty((2, 200, 2, 65), dtype=k.dtype, device=cuda)[..., :64].copy_(k)
+    else:                       # the head dim two elements apart
+        k2 = torch.empty((2, 200, 2, 64, 2), dtype=k.dtype, device=cuda)[..., 0].copy_(k)
+    assert fa.needs_copy(k2) and not fa.needs_copy(k)
+    got = fa.flash_attention_fwd(q, k2, v, True)
+    assert torch.equal(got, fa.flash_attention_fwd(q, k, v, True))
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, True), torch.bfloat16)
 
 
 def test_ops_flash_attention_on_card_launches_the_kernel(cuda):
