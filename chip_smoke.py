@@ -18,13 +18,16 @@ deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
    (one ``nvcc`` per source, all at once) and prints each build time; for
    the flash library, ptxas's registers and spills per tensor-core
    instantiation and its HGMMA (wgmma) instructions from ``cuobjdump
-   -sass``, failing if a bf16 tensor-core instantiation has none.
+   -sass``, failing if a bf16 tensor-core instantiation has none; for the
+   two redesigned GF kernels, ptxas's registers and spills, and the PRMT,
+   LOP3 and LDS instructions of each instantiation of the GF(2^8) matmul.
 2. Holds every kernel against its plain PyTorch version on the card.
    Data plane, bit-exact (integer work, tolerance 0): RS(6,3) encode of
    256 stripes of 1 MiB cells, their decode after losing cells (0, 1, 2),
    the TriEC stream scaling and XOR aggregation of one 6 x 16 MiB stripe,
    the S = 1 launches, and the GF(2) bit-matrix product of that stripe
-   (bits (48, 16 Mi)); plus ragged, unaligned operands.  Flash attention
+   (bits (48, 16 Mi)); plus ragged, unaligned operands, identity and
+   all-zero coefficients, and an all-zero bit-matrix.  Flash attention
    at the widths above, within one bf16 ulp plus 1e-3 of a row's RMS, and
    within 5e-4 relative RMS error (fp32: rtol = atol = 3e-4, the
    reference's own; see SAME_ARITHMETIC); at whisper's and prefill_32k's
@@ -59,6 +62,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -113,6 +117,7 @@ FLASH_CASES = [
     ("whisper-base encoder", 8, 1500, 8, 8, 64, 64, "bfloat16", False, 20, 3),
     ("yi-9b fp32", 1, 4096, 32, 4, 128, 128, "float32", True, 10, 3),
 ]
+RAGGED = (1, 31, 33, 100, 1000, 4108, 1_000_003)   # 4108 % 16 == 12
 MXU_RAGGED = (1, 127, 1000)
 YI = dict(d_model=4096, n_heads=32, n_kv_heads=4, head_dim=128)          # arXiv:2403.04652
 YI_BATCH, ATTN_SEQ = 8, 4096
@@ -199,32 +204,49 @@ def measure(name, source, replaces, kernel, plain, args, nbytes, shape, extra_ch
     return row
 
 
-def inspect_flash_build() -> dict:
-    """What the compiler made of the flash library: ptxas's registers and
-    spills for each tensor-core instantiation, and the HGMMA (wgmma)
-    instructions in each one's SASS (``cuobjdump -sass``).  Fails if a
-    tensor-core instantiation has none: its products would not run on the
-    tensor cores."""
+def ptxas_usage(source: str) -> dict[str, list[str]]:
+    """ptxas's registers and spills for each kernel of ``csrc/<source>.cu``,
+    from the build log of this run (``-Xptxas=-v``)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import SUPPORTED_D, SUPPORTED_DV
 
-    log = _build.LOGS.get("flash_attention", "")
     usage, current = {}, None
-    for line in log.splitlines():
+    for line in _build.LOGS.get(source, "").splitlines():
         if "Compiling entry function" in line:
             current = line.split("'")[1]
         elif current and ("registers" in line or "spill" in line):
             usage.setdefault(current, []).append(line.split(":", 1)[-1].strip())
+    return usage
+
+
+def sass_counts(source: str, opcodes: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    """The instructions of each opcode in each function of the built
+    ``csrc/<source>.cu`` (``cuobjdump -sass``): static counts, not runs."""
+    from repro_torch.kernels import _build
+
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(source))],
                           capture_output=True, text=True, check=True).stdout
-    hgmma, current = {}, None
+    pattern = re.compile(r"\b(" + "|".join(opcodes) + r")\b")
+    counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             current = line.split("Function :", 1)[1].strip()
-            hgmma[current] = 0
-        elif current and "HGMMA" in line:
-            hgmma[current] += 1
+            counts[current] = dict.fromkeys(opcodes, 0)
+        elif current:
+            for op in pattern.findall(line.split(";")[0]):
+                counts[current][op] += 1
+    return counts
+
+
+def inspect_flash_build() -> dict:
+    """What the compiler made of the flash library: ptxas's registers and
+    spills for each tensor-core instantiation, and the HGMMA (wgmma)
+    instructions in each one's SASS.  Fails if a tensor-core instantiation
+    has none: its products would not run on the tensor cores."""
+    from repro_torch.kernels.flash_attention import SUPPORTED_D, SUPPORTED_DV
+
+    usage = ptxas_usage("flash_attention")
+    hgmma = {name: c["HGMMA"] for name, c in sass_counts("flash_attention", ("HGMMA",)).items()}
     tc = {name: n for name, n in hgmma.items() if "flash_fwd_tc" in name}
     pairs = len(SUPPORTED_D) * len(SUPPORTED_DV)
     check(len(tc) == pairs, f"expected {pairs} tensor-core instantiations in the flash "
@@ -239,6 +261,37 @@ def inspect_flash_build() -> dict:
             print(f"    ptxas {name[-60:]}: {'; '.join(lines)}", flush=True)
     return {"hgmma": tc, "hgmma_simt": simt,
             "ptxas": {name: lines for name, lines in usage.items() if "flash" in name}}
+
+
+def inspect_gf_build() -> dict:
+    """What the compiler made of the two redesigned GF kernels: ptxas's
+    registers and spills for each instantiation of ``gf_matmul_kernel``
+    (tile heights 1-8, wide and byte paths) and for ``gf_mxu_kernel``, and
+    the PRMT, LOP3 and LDS instructions in each matmul instantiation (the
+    bit-field lookups, their XORs and the table reads).  Fails if an
+    instantiation is missing or has no PRMT."""
+    ptxas = {name: lines for source in ("gf256_encode", "gf_mxu")
+             for name, lines in ptxas_usage(source).items()
+             if "gf_matmul_kernel" in name or "gf_mxu_kernel" in name}
+    counts = {}
+    for name, c in sass_counts("gf256_encode", ("PRMT", "LOP3", "LDS")).items():
+        found = re.search(r"gf_matmul_kernelILi(\d+)ELb([01])E", name)
+        if found:
+            counts[(int(found.group(1)), found.group(2) == "1")] = (name, c)
+    want = [(rows, wide) for rows in range(1, 9) for wide in (False, True)]
+    check(sorted(counts) == want, f"expected gf_matmul_kernel<1..8, byte/wide>, found "
+          f"{sorted(counts)}")
+    check(all(c["PRMT"] > 0 for _, c in counts.values()), f"an instantiation has no PRMT: {counts}")
+    for (rows, wide), (name, c) in sorted(counts.items()):
+        print(f"  gf_matmul_kernel<{rows}, {'wide' if wide else 'bytes'}>: PRMT {c['PRMT']}, "
+              f"LOP3 {c['LOP3']}, LDS {c['LDS']}; ptxas "
+              f"{'; '.join(ptxas.get(name, ['not built in this run']))}", flush=True)
+    for name, lines in ptxas.items():
+        if "gf_mxu_kernel" in name:
+            print(f"  gf_mxu_kernel: ptxas {'; '.join(lines)}", flush=True)
+    return {"sass": {f"gf_matmul_kernel<{r}, {'wide' if w else 'bytes'}>": c
+                     for (r, w), (_, c) in sorted(counts.items())},
+            "ptxas": ptxas}
 
 
 def check_kernels(dev) -> tuple[list[dict], dict]:
@@ -259,18 +312,25 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
     src_xr = "src/repro_torch/kernels/csrc/xor_reduce.cu"
     rows = {}
 
+    # the matmul's bit-field tables, made once per matrix as the ops layer does
+    # (the plain version ignores them)
+    tables = {id(c): ge.field_tables(c) for c in (parity, inv)}
+
+    def matmul(c, x):
+        return ge.gf_matmul_bytes_batched(c, x, tables[id(c)])
+
     data = torch.randint(0, 256, (STRIPES, K, CELL), dtype=torch.uint8, device=dev,
                          generator=gen)
     rows["gf_matmul_bytes_batched"] = measure(
         "gf_matmul_bytes_batched", src_ge, "src/repro/kernels/gf256_encode.py:124",
-        ge.gf_matmul_bytes_batched, ge.gf_matmul_bytes_batched_plain, (parity, data),
+        matmul, ge.gf_matmul_bytes_batched_plain, (parity, data),
         STRIPES * (K + M) * CELL, f"encode ({M},{K}) x ({STRIPES},{K},{CELL})")
-    enc = ge.gf_matmul_bytes_batched(parity, data)
+    enc = matmul(parity, data)
     cells = torch.cat([data, enc], dim=1)[:, survivors]    # (S, k, L) surviving cells
     del enc
     dec = measure(
         "gf_matmul_bytes_batched[decode]", src_ge, "src/repro/kernels/gf256_encode.py:124",
-        ge.gf_matmul_bytes_batched, ge.gf_matmul_bytes_batched_plain, (inv, cells),
+        matmul, ge.gf_matmul_bytes_batched_plain, (inv, cells),
         STRIPES * (K + K) * CELL, f"decode lost {LOST}: ({K},{K}) x ({STRIPES},{K},{CELL})",
         extra_check=lambda out: check(torch.equal(out, data), "decode did not recover data"))
     dec["counter"] = "gf_matmul_bytes_batched"
@@ -296,20 +356,27 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
         (streams[0],), (K + 1) * STREAM, f"fold ({K},{STREAM})")
     rows["gf_matmul_bytes"] = measure(
         "gf_matmul_bytes", src_ge, "src/repro/kernels/gf256_encode.py:82",
-        ge.gf_matmul_bytes, lambda c, x: ge.gf_matmul_bytes_batched_plain(c, x[None])[0],
+        lambda c, x: ge.gf_matmul_bytes(c, x, tables[id(c)]),
+        lambda c, x: ge.gf_matmul_bytes_batched_plain(c, x[None])[0],
         (parity, stripe), (K + M) * STREAM, f"encode ({M},{K}) x ({K},{STREAM})",
         extra_check=lambda out: check(torch.equal(out, want_parity), "S=1 encode differs"))
     del stripe, streams, want_parity
 
-    # ragged lengths and unaligned, non-contiguous operands (the byte path)
+    # ragged lengths and unaligned, non-contiguous operands (the byte and
+    # 4-byte paths), and coefficient matrices the matmul skips (zeros) or
+    # XORs (ones) through
+    eye = torch.eye(K, dtype=torch.uint8, device=dev)
+    zeros = torch.zeros((M, K), dtype=torch.uint8, device=dev)
     ragged = {}
-    for length in (1, 31, 33, 100, 1000, 1_000_003):
+    for length in RAGGED:
         base = torch.randint(0, 256, (3, K + 1, length + 3), dtype=torch.uint8, device=dev,
                              generator=gen)
         x = base[:, 1:, 3:]
         pairs = [
             (ge.gf_matmul_bytes_batched(parity, x), ge.gf_matmul_bytes_batched_plain(parity, x)),
             (ge.gf_matmul_bytes_batched(inv, x), ge.gf_matmul_bytes_batched_plain(inv, x)),
+            (ge.gf_matmul_bytes_batched(eye, x), x),
+            (ge.gf_matmul_bytes_batched(zeros, x), torch.zeros_like(x[:, :M])),
             (ge.gf_matmul_bytes(parity, x[1]), ge.gf_matmul_bytes_batched_plain(parity, x[1:2])[0]),
             (ge.gf_scale_bytes(parity, x[2]), ge.gf_scale_bytes_plain(parity, x[2])),
             (xr.xor_reduce_bytes_batched(x), xr.xor_reduce_bytes_batched_plain(x)),
@@ -318,7 +385,8 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
         for i, (got, want) in enumerate(pairs):
             check(torch.equal(got, want), f"ragged L={length}: operand set {i} differs")
         ragged[length] = "bit-exact"
-    print(f"  ragged / unaligned lengths {sorted(ragged)}: bit-exact", flush=True)
+    print(f"  ragged / unaligned lengths {sorted(ragged)}, identity and zero coefficients: "
+          "bit-exact", flush=True)
     return list(rows.values()), ragged
 
 
@@ -480,13 +548,15 @@ def check_attention_kernels(dev) -> list[dict]:
     }
 
     bigmat = ops.rs_block_bitmatrix(K, M, "cauchy", dev)
+    masks = ge.row_masks(bigmat)          # made once per matrix, as the ops layer does
     bits = torch.randint(0, 2, (8 * K, STREAM), dtype=torch.int8, device=dev, generator=gen)
     mxu = measure(
         "gf_matmul_mxu", "src/repro_torch/kernels/csrc/gf_mxu.cu",
-        "src/repro/kernels/gf256_encode.py:240", ge.gf_matmul_mxu, ge.gf_matmul_mxu_plain,
+        "src/repro/kernels/gf256_encode.py:240",
+        lambda a, b: ge.gf_matmul_mxu(a, b, masks), ge.gf_matmul_mxu_plain,
         (bigmat, bits), 8 * K * STREAM + 8 * M * STREAM + bigmat.numel(),
         f"({8 * M},{8 * K}) x ({8 * K},{STREAM}) bits")
-    want = ge.gf_matmul_mxu(bigmat, bits)
+    want = ge.gf_matmul_mxu(bigmat, bits, masks)
     # the yardstick, on the same tensors: cuBLASLt takes int8 products only in
     # some layouts, so the transposed views are tried when the direct form is
     # refused.  Only a refusal is caught, and reported.
@@ -517,7 +587,10 @@ def check_attention_kernels(dev) -> list[dict]:
         bits = torch.randint(0, 2, (8 * K, n), dtype=torch.int8, device=dev, generator=gen)
         check(torch.equal(ge.gf_matmul_mxu(bigmat, bits), ge.gf_matmul_mxu_plain(bigmat, bits)),
               f"gf_matmul_mxu ragged n={n} differs")
-    print(f"  gf_matmul_mxu ragged n {list(MXU_RAGGED)}: bit-exact", flush=True)
+        check(not bool(ge.gf_matmul_mxu(torch.zeros_like(bigmat), bits).any()),
+              f"gf_matmul_mxu of a zero bit-matrix is not zero (n={n})")
+    print(f"  gf_matmul_mxu ragged n {list(MXU_RAGGED)} and a zero bit-matrix: bit-exact",
+          flush=True)
     torch.cuda.empty_cache()
     return [flash, mxu]
 
@@ -739,6 +812,7 @@ def main() -> int:
     print(f"phase 1: built {sorted(per_source)} in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})", flush=True)
     flash_build = inspect_flash_build()
+    gf_build = inspect_gf_build()
 
     print("phase 2: kernels against their plain versions", flush=True)
     dataplane_rows, _ = check_kernels(dev)
@@ -764,7 +838,8 @@ def main() -> int:
     torch.cuda.synchronize()
     count_launches(attention_rows, counters, "attention")
 
-    print(json.dumps({"cluster": cluster, "attention": attention, "flash_build": flash_build}))
+    print(json.dumps({"cluster": cluster, "attention": attention, "flash_build": flash_build,
+                      "gf_build": gf_build}))
     print(card)
     print(json.dumps({"kernels": dataplane_rows + attention_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

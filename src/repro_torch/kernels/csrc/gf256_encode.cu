@@ -8,21 +8,48 @@
 //
 // Bound: device memory.  The matmul reads S*k*L bytes and writes S*n*L; the
 // scaling stage reads k*L and writes m*k*L.  There is no arithmetic unit
-// that these byte products could saturate first.
+// that these byte products could saturate first, but a kernel can spend so
+// many integer instructions per byte that they, not the bytes, set its time.
 //
-// Design: per-coefficient product tables in shared memory, not bit-slicing.
-// The TPU kernel works on bit-planes because a TPU has no byte gather; the
-// reference packs and unpacks them around the kernel, three extra passes
-// over memory.  Here each block builds tab[(t*k + j)*256 + x] = c[t][j] * x
-// for the output rows t it owns, so a byte product is one shared-memory
-// lookup, and the kernel reads bytes and writes bytes in a single pass.
-// The bytes equal the bit-sliced result: both compute the same products in
-// the field of the primitive polynomial 0x11d.  A block owns at most
-// kMaxRows output rows, fewer when k is large, so the tables fit in shared
-// memory for any k + m <= 256; a wider code re-reads its input once per
-// row tile (grid.y).  Offsets are 64-bit, the stripe index lives in the
-// grid-stride loop (never in gridDim.y/z), and the ragged row tail goes
-// through the byte path of bytes.cuh.
+// Both kernels work on bytes, not bit-planes.  The TPU kernel works on
+// bit-planes because a TPU has no byte gather; the reference packs and
+// unpacks them around the kernel, three extra passes over memory.  Here a
+// kernel reads bytes and writes bytes in a single pass, and the bytes equal
+// the bit-sliced result: both compute the same products in the field of
+// the primitive polynomial 0x11d.  Offsets are 64-bit, the stripe index
+// lives in the grid-stride loop (never in gridDim.y/z), codes up to
+// k + n <= 256 tile their output rows over grid.y (each tile re-reads the
+// input), and ragged or unaligned rows go through the byte path of
+// bytes.cuh.
+//
+// gf_matmul_kernel: bit-field tables and byte permutes (the GPU form of the
+// pshufb method of ISA-L and GF-Complete, on fields of 3 bits because prmt
+// picks 4 bytes out of 8).  c * x = T_a[x & 7] ^ T_b[(x >> 3) & 7] ^
+// T_c[x >> 6] with tables of 8, 8 and 4 products per coefficient (32 bytes
+// with padding), built on the host (field_tables in gf256_encode.py) and
+// copied to shared memory per block.  A lookup of a data word's 4 bytes in
+// one table is one prmt, whose selector holds one 3-bit field per byte; the
+// selectors depend on the data word only, so split() builds them once (a
+// mask, a multiply by 0x1001 that gathers the 4 fields into one 16-bit
+// window, a shift: 10 instructions for 3 selectors and the permuted word)
+// and every output row reuses them, at 3 prmt + 2 lop3 per (word,
+// coefficient).  The multiply leaves the fields in the order of bytes 0, 2,
+// 1, 3, so the products and the accumulators are in that order too, and
+// the store swaps bytes 1 and 2 back.  Fields of 3 bits, not nibbles:
+// a 16-entry lookup costs two prmt and a bytewise select.  A zero
+// coefficient is skipped and a unit one is an XOR (uniform branches: every
+// lane takes the same), so decode, whose inverted matrix is mostly zeros
+// and unit rows, does no more products than encode.  A thread owns 16
+// bytes of each of a tile's rows and loads the next input row while it
+// works on this one; rows that allow it take a path of 16-byte accesses
+// only.  It keeps one uint4 accumulator per output row: the tile height R
+// is a template parameter, so a tile of R rows holds 4R accumulator
+// registers and no more, and the grid fills the card with as many blocks
+// as the registers let it hold (4 of 256 threads from R = 4 on, whose
+// register count is capped for it).
+//
+// gf_scale_kernel keeps the first design: one lookup in a 256-entry product
+// table per byte, the tables built per block in shared memory.
 
 #include "bytes.cuh"
 
@@ -32,6 +59,134 @@ constexpr int kThreads = 256;
 constexpr int kMaxRows = 8;
 constexpr int kBlocksPerSm = 8;
 constexpr int kSmemDefault = 48 * 1024;
+
+// -- gf_matmul_kernel: bit-field tables ------------------------------------------
+
+// Bytes of one coefficient's tables: T_a[8] (c * x), T_b[8] (c * (x << 3)),
+// T_c[4] (c * (x << 6)), then 12 bytes of zeros.
+constexpr int kFieldTableBytes = 32;
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// Bytes 0, 2, 1, 3 of x: the order of the selectors' fields (an involution).
+__device__ __forceinline__ uint32_t swap12(uint32_t x) { return prmt(x, 0, 0x3120u); }
+
+// What the lookups of one data word need, whatever the coefficient: a prmt
+// selector per field (one selector nibble per byte, in the order of bytes
+// 0, 2, 1, 3) and the word itself in that order, for unit coefficients.
+// Masked to one field, x * 0x1001 holds every byte's field at a distinct
+// nibble (no carries: each field is at most 3 bits), 4 of them in one
+// 16-bit window that the shift moves to the bottom; prmt reads only the
+// low 16 bits of a selector.
+struct Fields {
+  uint32_t a, b, c, x;
+};
+
+__device__ __forceinline__ Fields split(uint32_t x) {
+  return {((x & 0x07070707u) * 0x1001u) >> 12, ((x & 0x38383838u) * 0x1001u) >> 15,
+          ((x & 0xc0c0c0c0u) * 0x1001u) >> 18, swap12(x)};
+}
+
+// c * x for the 4 bytes of x, bytes 1 and 2 swapped, through c's tables:
+// ab = T_a, T_b (4 words: entry e of T_a is byte e % 4 of word e / 4),
+// c4 = T_c.
+__device__ __forceinline__ uint32_t mul4_fields(const uint4& ab, uint32_t c4, const Fields& f) {
+  return prmt(ab.x, ab.y, f.a) ^ prmt(ab.z, ab.w, f.b) ^ prmt(c4, 0, f.c);
+}
+
+// 16 bytes of a row: one 16-byte access on the wide path, else load16.
+template <bool kWide>
+__device__ __forceinline__ uint4 load_row(const uint8_t* __restrict__ p, int nb, int width) {
+  return kWide ? __ldg(reinterpret_cast<const uint4*>(p)) : load16(p, nb, width);
+}
+
+template <bool kWide>
+__device__ __forceinline__ void store_row(uint8_t* __restrict__ p, uint4 x, int nb, int width) {
+  x = make_uint4(swap12(x.x), swap12(x.y), swap12(x.z), swap12(x.w));
+  if (kWide)
+    *reinterpret_cast<uint4*>(p) = x;
+  else
+    store16(p, x, nb, width);
+}
+
+// out[s, i, :] = XOR_j c[i, j] * data[s, j, :] for the rows of tile
+// blockIdx.y (R rows, fewer in the last tile).  `tables` is (n, k, 32);
+// kWide: every row takes 16-byte accesses (width == 16).
+template <int R, bool kWide>
+__global__ void __launch_bounds__(kThreads, R > 3 ? 4 : 1)
+gf_matmul_kernel(const uint4* __restrict__ tables, const uint8_t* __restrict__ data,
+                 uint8_t* __restrict__ out, int64_t S, int n, int k, int64_t L, int width) {
+  extern __shared__ uint4 field_tab[];    // [row t][j][T_a T_b, T_c and zeros]
+  const int row0 = blockIdx.y * R;
+  const int rows = min(R, n - row0);
+  const uint4* src_tab = tables + int64_t(row0) * k * 2;
+  for (int e = threadIdx.x; e < rows * k * 2; e += blockDim.x) field_tab[e] = src_tab[e];
+  __syncthreads();
+
+  const int64_t chunks = (L + 15) >> 4;
+  const int64_t items = S * chunks;
+  for (int64_t it = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; it < items;
+       it += int64_t(gridDim.x) * blockDim.x) {
+    const int64_t s = it / chunks;
+    const int64_t p = (it - s * chunks) << 4;
+    const int nb = L - p < 16 ? int(L - p) : 16;
+    const uint8_t* src = data + s * k * L + p;
+    uint4 acc[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) acc[t] = make_uint4(0, 0, 0, 0);
+    uint4 next = load_row<kWide>(src, nb, width);
+    for (int j = 0; j < k; ++j) {
+      const uint4 x = next;
+      if (j + 1 < k) next = load_row<kWide>(src + int64_t(j + 1) * L, nb, width);
+      const Fields f0 = split(x.x), f1 = split(x.y), f2 = split(x.z), f3 = split(x.w);
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        if (t >= rows) break;
+        const uint4 ab = field_tab[(t * k + j) * 2];
+        const uint32_t c = (ab.x >> 8) & 0xffu;   // T_a[1] = c * 1
+        if (c == 0) continue;
+        if (c == 1) {
+          acc[t].x ^= f0.x, acc[t].y ^= f1.x, acc[t].z ^= f2.x, acc[t].w ^= f3.x;
+          continue;
+        }
+        const uint32_t c4 = field_tab[(t * k + j) * 2 + 1].x;
+        acc[t].x ^= mul4_fields(ab, c4, f0);
+        acc[t].y ^= mul4_fields(ab, c4, f1);
+        acc[t].z ^= mul4_fields(ab, c4, f2);
+        acc[t].w ^= mul4_fields(ab, c4, f3);
+      }
+    }
+    uint8_t* dst = out + (s * n + row0) * L + p;
+#pragma unroll
+    for (int t = 0; t < R; ++t)
+      if (t < rows) store_row<kWide>(dst + int64_t(t) * L, acc[t], nb, width);
+  }
+}
+
+template <int R, bool kWide>
+cudaError_t launch_tile(const uint4* tables, const uint8_t* data, uint8_t* out, int64_t S,
+                        int n, int k, int64_t L, int width, cudaStream_t stream) {
+  const size_t smem = size_t(R) * k * kFieldTableBytes;
+  const dim3 grid(resident_grid(gf_matmul_kernel<R, kWide>, S * ((L + 15) / 16), kThreads, smem),
+                  unsigned((n + R - 1) / R));
+  gf_matmul_kernel<R, kWide><<<grid, kThreads, smem, stream>>>(tables, data, out, S, n, k, L,
+                                                               width);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_matmul(const uint4* tables, const uint8_t* data, uint8_t* out, int64_t S,
+                          int n, int k, int64_t L, cudaStream_t stream) {
+  const int width = row_width(L, data, out);
+  if (width == 16) return launch_tile<R, true>(tables, data, out, S, n, k, L, width, stream);
+  return launch_tile<R, false>(tables, data, out, S, n, k, L, width, stream);
+}
+
+// -- gf_scale_kernel: 256-entry product tables ------------------------------------
 
 // Russian-peasant multiply in GF(2^8) mod x^8 + x^4 + x^3 + x^2 + 1.
 __device__ __forceinline__ uint32_t gf_mul(uint32_t a, uint32_t b) {
@@ -53,44 +208,10 @@ __device__ void build_tables(uint8_t* tab, const uint8_t* __restrict__ coeffs, i
     tab[e] = uint8_t(gf_mul(coeffs[e >> 8], uint32_t(e & 255)));
 }
 
-// The shared body: four byte products through one coefficient's table.
+// Four byte products through one coefficient's 256-entry table.
 __device__ __forceinline__ uint32_t mul4(const uint8_t* t, uint32_t x) {
   return uint32_t(t[x & 255u]) | (uint32_t(t[(x >> 8) & 255u]) << 8) |
          (uint32_t(t[(x >> 16) & 255u]) << 16) | (uint32_t(t[x >> 24]) << 24);
-}
-
-// out[s, i, :] = XOR_j c[i, j] * data[s, j, :]
-__global__ void __launch_bounds__(kThreads)
-gf_matmul_kernel(const uint8_t* __restrict__ coeffs, const uint8_t* __restrict__ data,
-                 uint8_t* __restrict__ out, int64_t S, int n, int k, int64_t L,
-                 int rows_per_block, bool vec) {
-  extern __shared__ uint8_t tab[];
-  const int row0 = blockIdx.y * rows_per_block;
-  const int rows = min(rows_per_block, n - row0);
-  build_tables(tab, coeffs + int64_t(row0) * k, rows, k);
-  __syncthreads();
-  const int64_t words = (L + 3) >> 2;
-  const int64_t items = S * words;
-  for (int64_t it = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; it < items;
-       it += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t s = it / words;
-    const int64_t p = (it - s * words) << 2;
-    const int nb = L - p < 4 ? int(L - p) : 4;
-    const uint8_t* src = data + s * k * L + p;
-    uint32_t acc[kMaxRows];
-#pragma unroll
-    for (int t = 0; t < kMaxRows; ++t) acc[t] = 0;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t x = load4(src + int64_t(j) * L, nb, vec);
-#pragma unroll
-      for (int t = 0; t < kMaxRows; ++t)
-        if (t < rows) acc[t] ^= mul4(tab + (t * k + j) * 256, x);
-    }
-    uint8_t* dst = out + (s * n + row0) * L + p;
-#pragma unroll
-    for (int t = 0; t < kMaxRows; ++t)
-      if (t < rows) store4(dst + int64_t(t) * L, acc[t], nb, vec);
-  }
 }
 
 // out[i, j, :] = c[i, j] * data[j, :]  (no fold over j)
@@ -119,8 +240,9 @@ gf_scale_kernel(const uint8_t* __restrict__ coeffs, const uint8_t* __restrict__ 
   }
 }
 
-// Output rows per block: all of them up to kMaxRows while their tables fit
-// the default 48 KiB; at least one (k * 256 <= 64 KiB, opted in below).
+// gf_scale_kernel's output rows per block: all of them up to kMaxRows while
+// their tables fit the default 48 KiB; at least one (k * 256 <= 64 KiB,
+// opted in below).
 int rows_per_block(int64_t n, int64_t k) {
   int64_t r = kSmemDefault / (k * 256);
   if (r < 1) r = 1;
@@ -136,22 +258,33 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 }  // namespace
 
-// (n, k) coefficients x (S, k, L) bytes -> (S, n, L) bytes.  Contiguous
-// rows; the caller checks S, n, L >= 1 and 1 <= k <= 256.
-extern "C" int gf_matmul_bytes_batched(const void* coeffs, const void* data, void* out,
+// (n, k, 32) bit-field tables x (S, k, L) bytes -> (S, n, L) bytes.  Contiguous
+// rows and 16-byte aligned tables; the caller checks S, n, L >= 1 and
+// 1 <= k <= 256.
+extern "C" int gf_matmul_bytes_batched(const void* tables, const void* data, void* out,
                                        int64_t S, int64_t n, int64_t k, int64_t L,
                                        void* stream) {
-  const int rpb = rows_per_block(n, k);
-  const size_t smem = size_t(rpb) * k * 256;
-  cudaError_t err = prepare(gf_matmul_kernel, smem);
-  if (err != cudaSuccess) return int(err);
-  const bool vec = (L % 4 == 0) && aligned4(data) && aligned4(out);
-  const dim3 grid(grid_blocks(S * ((L + 3) / 4), kThreads, kBlocksPerSm),
-                  unsigned((n + rpb - 1) / rpb));
-  gf_matmul_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(coeffs), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), S, int(n), int(k), L, rpb, vec);
-  return int(cudaGetLastError());
+  if (reinterpret_cast<uintptr_t>(tables) & 15u) return int(cudaErrorMisalignedAddress);
+  // output rows per tile: all of them up to kMaxRows while their tables fit
+  // the default 48 KiB of shared memory
+  int64_t rows = kSmemDefault / (k * kFieldTableBytes);
+  rows = rows < n ? rows : n;
+  rows = rows < kMaxRows ? rows : kMaxRows;
+  const auto* t = static_cast<const uint4*>(tables);
+  const auto* d = static_cast<const uint8_t*>(data);
+  auto* o = static_cast<uint8_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int ni = int(n), ki = int(k);
+  switch (rows) {
+    case 1: return int(launch_matmul<1>(t, d, o, S, ni, ki, L, st));
+    case 2: return int(launch_matmul<2>(t, d, o, S, ni, ki, L, st));
+    case 3: return int(launch_matmul<3>(t, d, o, S, ni, ki, L, st));
+    case 4: return int(launch_matmul<4>(t, d, o, S, ni, ki, L, st));
+    case 5: return int(launch_matmul<5>(t, d, o, S, ni, ki, L, st));
+    case 6: return int(launch_matmul<6>(t, d, o, S, ni, ki, L, st));
+    case 7: return int(launch_matmul<7>(t, d, o, S, ni, ki, L, st));
+    default: return int(launch_matmul<8>(t, d, o, S, ni, ki, L, st));
+  }
 }
 
 // (m, k) coefficients x (k, L) bytes -> (m, k, L) bytes.  Contiguous rows;

@@ -1,31 +1,39 @@
-// GF(2) matmul as an integer dot product: the "MXU" RS encode, for Hopper
-// (sm_90a).
+// GF(2) matmul of bit rows: the "MXU" RS encode, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gf256_encode.py:
 //   gf_matmul_mxu  <- gf_matmul_mxu (_gf_mxu_kernel)
 //
 // Computes out = (bigmat @ bits) & 1 for an (8m, 8k) int8 bit-matrix and
-// (8k, n) int8 bit columns, int32 accumulation, (8m, n) int8 out.  Row j*8+b
-// of `bits` is bit b of data chunk j, column t is byte t of the stripe.
+// (8k, n) int8 bit columns, (8m, n) int8 out.  Row j*8+b of `bits` is bit b
+// of data chunk j, column t is byte t of the stripe.  Only the low bit of
+// each operand reaches the result: the parity of an integer dot is the
+// XOR of the products of the operands' low bits.
 //
 // Bound on this card: device memory.  It reads 8k*n + 8m*8k bytes and
 // writes 8m*n; at RS(6,3) that is 72 bytes per column against 2*24*48 int8
 // operations, 32 per byte, far below the ridge point (~590 int8 ops per
-// byte at 1,979 TOP/s over 3.35 TB/s).
+// byte at 1,979 TOP/s over 3.35 TB/s), so the tensor cores would only wait
+// on memory.
 //
-// Design: the scalar __dp4a form, not an mma.sync tile.  The work is so
-// far below the ridge that the tensor cores would only wait on memory, and
-// dp4a needs no fragment layouts.  Each block holds up to kMaxRows rows of
-// the bit-matrix in shared memory as packed 4-byte words (one word = 4
-// consecutive input bits of an output row).  A thread owns 4 consecutive
-// columns: for every 4 input rows it reads one 32-bit word from each
-// (neighbouring threads, neighbouring bytes), transposes the 4x4 bytes with
-// __byte_perm into one word per column, and adds __dp4a(row word, column
-// word) into an int32 accumulator per (output row, column).  It writes
-// acc & 1 as int8, 4 columns as one word.  A ragged n goes through the byte
-// path of bytes.cuh (no padding); a bit-matrix with more than kMaxRows rows
-// tiles them over grid.y, re-reading `bits` once per tile.  Offsets are
-// 64-bit and the column index lives in a grid-stride loop.
+// Design: bit-packed parity.  The host packs the low bits of
+// bigmat[t, 8j:8j+8] into one mask byte M[t][j] (row_masks in
+// gf256_encode.py); a block replicates them into words in shared memory,
+// [j][t], read by broadcast.  A thread owns 4 consecutive columns.  For each
+// group j of 8 input rows it packs their low bits into one byte per column,
+// P = OR_r (x_r & 0x01010101) << r (the data byte of GF(2^8) again), and
+// every output row accumulates A_t ^= P & M[t][j] (one lop3 per row and
+// group).  The parity of each byte of A_t is the result: three shift-XORs
+// and an AND, then one 32-bit store of 4 columns.  A thread so keeps one
+// accumulator word per output row (24 at RS(6,3)), where the __dp4a form
+// before it kept 4 int32 sums per row and 150 registers a thread, one
+// block per SM.  Loads stay 32-bit: 16 columns a thread would need 4x the
+// accumulators, and a warp's 32 neighbouring 4-byte loads already cover
+// whole 128-byte lines; the 8 loads of a group are independent, and as
+// many blocks as the registers allow keep them in flight.  A ragged n goes
+// through the byte path of bytes.cuh (no padding); a bit-matrix with more
+// than kMaxRows rows tiles them over grid.y, re-reading `bits` once per
+// tile.  Offsets are 64-bit and the column index lives in a grid-stride
+// loop.
 
 #include "bytes.cuh"
 
@@ -33,63 +41,56 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 24;     // RS(6,3)'s 8m = 24 output rows in one pass
-constexpr int kBlocksPerSm = 4;
 
+// out[row0 + t, :] = parity of the masked input bits, for the rows of tile
+// blockIdx.y.  `masks` is (em, kg) bytes, kg = ek / 8 groups of 8 rows.
 __global__ void __launch_bounds__(kThreads)
-gf_mxu_kernel(const int8_t* __restrict__ bigmat, const int8_t* __restrict__ bits,
-              int8_t* __restrict__ out, int em, int ek, int64_t n, int rows_per_block,
-              bool vec) {
-  extern __shared__ int32_t mat[];       // rows x (ek / 4) packed row words
-  const int row0 = blockIdx.y * rows_per_block;
-  const int rows = min(rows_per_block, em - row0);
-  const int kw = ek >> 2;
-  for (int e = threadIdx.x; e < rows * kw; e += blockDim.x) {
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(bigmat) +
-                         int64_t(row0 + e / kw) * ek + (e % kw) * 4;
-    mat[e] = int32_t(uint32_t(src[0]) | (uint32_t(src[1]) << 8) | (uint32_t(src[2]) << 16) |
-                     (uint32_t(src[3]) << 24));
+gf_mxu_kernel(const uint8_t* __restrict__ masks, const uint8_t* __restrict__ bits,
+              uint8_t* __restrict__ out, int em, int kg, int64_t n, bool vec) {
+  extern __shared__ uint4 mat[];         // [group j][kMaxRows / 4]: M * 0x01010101
+  const int row0 = blockIdx.y * kMaxRows;
+  const int rows = min(kMaxRows, em - row0);
+  uint32_t* words = reinterpret_cast<uint32_t*>(mat);
+  for (int e = threadIdx.x; e < kg * kMaxRows; e += blockDim.x) {
+    const int j = e / kMaxRows, t = e % kMaxRows;
+    words[e] = t < rows ? uint32_t(masks[int64_t(row0 + t) * kg + j]) * 0x01010101u : 0u;
   }
   __syncthreads();
 
-  const uint8_t* in = reinterpret_cast<const uint8_t*>(bits);
-  const int64_t words = (n + 3) >> 2;
-  for (int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; w < words;
+  const int64_t cols = (n + 3) >> 2;
+  for (int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; w < cols;
        w += int64_t(gridDim.x) * blockDim.x) {
     const int64_t p = w << 2;
     const int nb = n - p < 4 ? int(n - p) : 4;
-    int32_t acc[kMaxRows][4];
+    uint32_t acc[kMaxRows];
 #pragma unroll
-    for (int t = 0; t < kMaxRows; ++t)
+    for (int t = 0; t < kMaxRows; ++t) acc[t] = 0;
+    for (int j = 0; j < kg; ++j) {
+      const uint8_t* src = bits + int64_t(8 * j) * n + p;
+      uint32_t x[8];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[t][c] = 0;
-    for (int r = 0; r < ek; r += 4) {
-      const uint32_t x0 = load4(in + int64_t(r) * n + p, nb, vec);
-      const uint32_t x1 = load4(in + int64_t(r + 1) * n + p, nb, vec);
-      const uint32_t x2 = load4(in + int64_t(r + 2) * n + p, nb, vec);
-      const uint32_t x3 = load4(in + int64_t(r + 3) * n + p, nb, vec);
-      // column c's word: byte i = bits[r + i][p + c]
-      const uint32_t lo01 = __byte_perm(x0, x1, 0x5140), hi01 = __byte_perm(x0, x1, 0x7362);
-      const uint32_t lo23 = __byte_perm(x2, x3, 0x5140), hi23 = __byte_perm(x2, x3, 0x7362);
-      const int32_t col[4] = {int32_t(__byte_perm(lo01, lo23, 0x5410)),
-                              int32_t(__byte_perm(lo01, lo23, 0x7632)),
-                              int32_t(__byte_perm(hi01, hi23, 0x5410)),
-                              int32_t(__byte_perm(hi01, hi23, 0x7632))};
+      for (int r = 0; r < 8; ++r) x[r] = load4(src + int64_t(r) * n, nb, vec);
+      uint32_t packed = 0;
 #pragma unroll
-      for (int t = 0; t < kMaxRows; ++t) {
-        if (t < rows) {
-          const int32_t a = mat[t * kw + (r >> 2)];
+      for (int r = 0; r < 8; ++r) packed |= (x[r] & 0x01010101u) << r;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[t][c] = __dp4a(a, col[c], acc[t][c]);
-        }
+      for (int q = 0; q < kMaxRows / 4; ++q) {
+        const uint4 m = mat[j * (kMaxRows / 4) + q];
+        acc[4 * q] ^= packed & m.x;
+        acc[4 * q + 1] ^= packed & m.y;
+        acc[4 * q + 2] ^= packed & m.z;
+        acc[4 * q + 3] ^= packed & m.w;
       }
     }
-    uint8_t* dst = reinterpret_cast<uint8_t*>(out) + int64_t(row0) * n + p;
+    uint8_t* dst = out + int64_t(row0) * n + p;
 #pragma unroll
     for (int t = 0; t < kMaxRows; ++t) {
       if (t < rows) {
-        const uint32_t word = uint32_t(acc[t][0] & 1) | (uint32_t(acc[t][1] & 1) << 8) |
-                              (uint32_t(acc[t][2] & 1) << 16) | (uint32_t(acc[t][3] & 1) << 24);
-        store4(dst + int64_t(t) * n, word, nb, vec);
+        uint32_t a = acc[t];
+        a ^= a >> 4;
+        a ^= a >> 2;
+        a ^= a >> 1;
+        store4(dst + int64_t(t) * n, a & 0x01010101u, nb, vec);
       }
     }
   }
@@ -97,19 +98,19 @@ gf_mxu_kernel(const int8_t* __restrict__ bigmat, const int8_t* __restrict__ bits
 
 }  // namespace
 
-// (em, ek) int8 x (ek, n) int8 -> (em, n) int8, (bigmat @ bits) & 1.
-// Contiguous rows; the caller checks em, n >= 1 and ek % 4 == 0 with
-// 4 <= ek <= 2048.
-extern "C" int gf_matmul_mxu(const void* bigmat, const void* bits, void* out, int64_t em,
+// (em, ek / 8) packed row masks x (ek, n) int8 bits -> (em, n) int8,
+// (bigmat @ bits) & 1.  Contiguous rows; the caller checks em, n >= 1 and
+// ek % 8 == 0 with 8 <= ek <= 2048.
+extern "C" int gf_matmul_mxu(const void* masks, const void* bits, void* out, int64_t em,
                              int64_t ek, int64_t n, void* stream) {
-  if (ek % 4 != 0 || ek < 4 || ek > 2048) return int(cudaErrorInvalidValue);
-  const int rpb = int(em < kMaxRows ? em : kMaxRows);
-  const size_t smem = size_t(rpb) * ek;   // <= 24 * 2048 = 48 KiB, the default
+  if (ek % 8 != 0 || ek < 8 || ek > 2048) return int(cudaErrorInvalidValue);
+  const int kg = int(ek / 8);
+  const size_t smem = size_t(kg) * kMaxRows * 4;   // <= 256 * 96 B = 24 KiB
   const bool vec = (n % 4 == 0) && aligned4(bits) && aligned4(out);
-  const dim3 grid(grid_blocks((n + 3) / 4, kThreads, kBlocksPerSm),
-                  unsigned((em + rpb - 1) / rpb));
+  const dim3 grid(resident_grid(gf_mxu_kernel, (n + 3) / 4, kThreads, smem),
+                  unsigned((em + kMaxRows - 1) / kMaxRows));
   gf_mxu_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(bigmat), static_cast<const int8_t*>(bits),
-      static_cast<int8_t*>(out), int(em), int(ek), n, rpb, vec);
+      static_cast<const uint8_t*>(masks), static_cast<const uint8_t*>(bits),
+      static_cast<uint8_t*>(out), int(em), kg, n, vec);
   return int(cudaGetLastError());
 }

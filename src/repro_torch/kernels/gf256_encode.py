@@ -15,12 +15,18 @@ each with its plain PyTorch version beside it:
   ==========================  =========================================================
 
 Bound: device memory.  The matmul moves S*(k+n)*L bytes, the scaling
-stage k*L + m*k*L.  Design: per-coefficient 256-entry product tables in
-shared memory, one lookup per byte product, bytes in and bytes out in one
-pass (no bit-plane packing around the kernel); see the source's header.
-``gf_matmul_mxu`` is the GF(2) form on unpacked bits, (bigmat @ bits) & 1
-with int32 accumulation, moving 8k*n + 8m*n bytes: the bit-matrix in
-shared memory, __dp4a over 4x4 byte transposes; see ``csrc/gf_mxu.cu``.
+stage k*L + m*k*L.  Both read bytes and write bytes in one pass (no
+bit-plane packing around the kernel).  The matmul looks its products up
+in bit-field tables (``field_tables``: c*x = T_a[x & 7] ^
+T_b[(x >> 3) & 7] ^ T_c[x >> 6]) with byte permutes, skips zero
+coefficients and XORs unit ones; the scaling stage keeps one 256-entry
+product table per coefficient.  ``gf_matmul_mxu`` is the GF(2) form on unpacked bits,
+(bigmat @ bits) & 1, moving 8k*n + 8m*n bytes: each output row's mask
+bits packed a byte per 8 input rows (``row_masks``), the input's low bits
+packed the same way, an AND-XOR per row and a bytewise parity at the end;
+see ``csrc/gf_mxu.cu``.  The tables and masks are built on the host side
+of the launch; ``repro_torch.kernels.ops`` caches them per coefficient
+matrix and device and passes them in.
 
 A wrapper given CPU tensors computes the plain version, which is also the
 oracle ``chip_smoke.py`` holds the kernel against on the card.  Given
@@ -31,6 +37,7 @@ CUDA tensors it launches the kernel on the current stream or raises;
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -82,6 +89,37 @@ def product_tables(coeffs: torch.Tensor) -> torch.Tensor:
     return full[coeffs.long()]
 
 
+#: the operands of the 32 products in one coefficient's bit-field tables:
+#: T_a (bits 0-2 of a byte), T_b (bits 3-5), T_c (bits 6-7), zeros
+FIELD_OPERANDS = (tuple(range(8)) + tuple(x << 3 for x in range(8))
+                  + tuple(x << 6 for x in range(4)) + (0,) * 12)
+
+
+@functools.lru_cache(maxsize=8)
+def _field_products(device: torch.device) -> torch.Tensor:
+    """(256, 32) uint8 on ``device``: row c holds c * FIELD_OPERANDS."""
+    host = gf256.full_mul_table()[:, list(FIELD_OPERANDS)]
+    return torch.from_numpy(host.copy()).to(device)
+
+
+def field_tables(coeffs: torch.Tensor) -> torch.Tensor:
+    """(n, k) coefficients -> (n, k, 32) uint8 bit-field tables, on the
+    coefficients' device: ``t[x] = c * x``, ``t[8 + x] = c * (x << 3)`` for
+    x < 8 and ``t[16 + x] = c * (x << 6)`` for x < 4, zeros after, so that
+    ``c * b = t[b & 7] ^ t[8 + ((b >> 3) & 7)] ^ t[16 + (b >> 6)]`` and
+    ``t[1] = c``."""
+    return _field_products(coeffs.device)[coeffs.long()]
+
+
+def row_masks(bigmat: torch.Tensor) -> torch.Tensor:
+    """(em, ek) int8 bit-matrix -> (em, ek // 8) uint8: bit r of byte
+    ``[t, j]`` is the low bit of ``bigmat[t, 8 j + r]``."""
+    em, ek = bigmat.shape
+    low = (bigmat & 1).to(torch.int32).reshape(em, ek // 8, 8)
+    shifts = torch.arange(8, dtype=torch.int32, device=bigmat.device)
+    return (low << shifts).sum(dim=-1).to(torch.uint8)
+
+
 # -- plain versions -----------------------------------------------------------
 
 
@@ -105,40 +143,58 @@ def gf_scale_bytes_plain(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tens
 # -- kernel wrappers ------------------------------------------------------------
 
 
-def _launch_matmul(coeffs: torch.Tensor, data: torch.Tensor, out: torch.Tensor) -> None:
+def _aligned_tables(coeffs: torch.Tensor, tables: torch.Tensor | None) -> torch.Tensor:
+    """``tables`` (or ``field_tables(coeffs)``) checked against ``coeffs``,
+    contiguous and 16-byte aligned as the kernel reads them."""
+    if tables is None:
+        tables = field_tables(coeffs)
+    if (tables.dtype != torch.uint8 or tables.device != coeffs.device
+            or tables.shape != (*coeffs.shape, 32)):
+        raise ValueError(f"tables {tables.dtype} {tuple(tables.shape)} on {tables.device} "
+                         f"are not the bit-field tables of coeffs {tuple(coeffs.shape)}")
+    tables = tables.contiguous()
+    return tables if tables.data_ptr() % 16 == 0 else tables.clone()
+
+
+def _launch_matmul(tables: torch.Tensor, data: torch.Tensor, out: torch.Tensor) -> None:
     """One launch over a contiguous (S, k, L) batch into (S, n, L) ``out``."""
     lib = _lib()
-    coeffs = coeffs.contiguous()
     data = data.contiguous()
     s, k, length = data.shape
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.gf_matmul_bytes_batched(coeffs.data_ptr(), data.data_ptr(), out.data_ptr(),
-                                         s, coeffs.shape[0], k, length, stream)
+        rc = lib.gf_matmul_bytes_batched(tables.data_ptr(), data.data_ptr(), out.data_ptr(),
+                                         s, tables.shape[0], k, length, stream)
     _build.check(lib, rc, "gf_matmul_bytes_batched")
 
 
-def gf_matmul_bytes_batched(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """(n, k) uint8 coefficients x (S, k, L) uint8 stripes -> (S, n, L) uint8."""
+def gf_matmul_bytes_batched(coeffs: torch.Tensor, data: torch.Tensor,
+                            tables: torch.Tensor | None = None) -> torch.Tensor:
+    """(n, k) uint8 coefficients x (S, k, L) uint8 stripes -> (S, n, L) uint8.
+
+    ``tables``: ``field_tables(coeffs)`` made beforehand (built here when
+    not given); only the kernel reads them."""
     _check(coeffs, data, 3)
     if data.device.type == "cpu":
         return gf_matmul_bytes_batched_plain(coeffs, data)
     s, _, length = data.shape
     out = torch.empty((s, coeffs.shape[0], length), dtype=torch.uint8, device=data.device)
     if out.numel():
-        _launch_matmul(coeffs, data, out)
+        _launch_matmul(_aligned_tables(coeffs, tables), data, out)
         gf_matmul_bytes_batched.launches += 1
     return out
 
 
-def gf_matmul_bytes(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """(n, k) uint8 coefficients x (k, L) uint8 rows -> (n, L) uint8."""
+def gf_matmul_bytes(coeffs: torch.Tensor, data: torch.Tensor,
+                    tables: torch.Tensor | None = None) -> torch.Tensor:
+    """(n, k) uint8 coefficients x (k, L) uint8 rows -> (n, L) uint8
+    (``tables`` as for ``gf_matmul_bytes_batched``)."""
     _check(coeffs, data, 2)
     if data.device.type == "cpu":
         return gf_matmul_bytes_batched_plain(coeffs, data[None])[0]
     out = torch.empty((coeffs.shape[0], data.shape[1]), dtype=torch.uint8, device=data.device)
     if out.numel():
-        _launch_matmul(coeffs, data[None], out)
+        _launch_matmul(_aligned_tables(coeffs, tables), data[None], out)
         gf_matmul_bytes.launches += 1
     return out
 
@@ -188,21 +244,31 @@ def gf_matmul_mxu_plain(bigmat: torch.Tensor, bits: torch.Tensor) -> torch.Tenso
     return (prod.to(torch.int32) & 1).to(torch.int8)
 
 
-def gf_matmul_mxu(bigmat: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """(8m, 8k) int8 bit-matrix x (8k, n) int8 bits -> (8m, n) int8, mod 2."""
+def gf_matmul_mxu(bigmat: torch.Tensor, bits: torch.Tensor,
+                  masks: torch.Tensor | None = None) -> torch.Tensor:
+    """(8m, 8k) int8 bit-matrix x (8k, n) int8 bits -> (8m, n) int8, mod 2.
+
+    ``masks``: ``row_masks(bigmat)`` made beforehand (built here when not
+    given); only the kernel reads them."""
     _check_mxu(bigmat, bits)
     if bits.device.type == "cpu":
         return gf_matmul_mxu_plain(bigmat, bits)
-    em, n = bigmat.shape[0], bits.shape[1]
+    em, ek = bigmat.shape
+    n = bits.shape[1]
+    if masks is None:
+        masks = row_masks(bigmat)
+    if masks.dtype != torch.uint8 or masks.device != bits.device or masks.shape != (em, ek // 8):
+        raise ValueError(f"masks {masks.dtype} {tuple(masks.shape)} on {masks.device} are "
+                         f"not the row masks of bigmat {tuple(bigmat.shape)}")
     out = torch.empty((em, n), dtype=torch.int8, device=bits.device)
     if out.numel():
         lib = _mxu_lib()
-        bigmat = bigmat.contiguous()
+        masks = masks.contiguous()
         bits = bits.contiguous()
         with torch.cuda.device(bits.device):
             stream = torch.cuda.current_stream(bits.device).cuda_stream
-            rc = lib.gf_matmul_mxu(bigmat.data_ptr(), bits.data_ptr(), out.data_ptr(),
-                                   em, bigmat.shape[1], n, stream)
+            rc = lib.gf_matmul_mxu(masks.data_ptr(), bits.data_ptr(), out.data_ptr(),
+                                   em, ek, n, stream)
         _build.check(lib, rc, "gf_matmul_mxu")
         gf_matmul_mxu.launches += 1
     return out

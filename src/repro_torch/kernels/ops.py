@@ -11,7 +11,9 @@ LUT oracles of :mod:`repro_torch.kernels.ref` instead of the kernels.
 
 The kernels read and write bytes and mask ragged rows themselves, so
 unlike the reference there is no padding to a tile, no bit-plane packing
-and no tile-size argument here.
+and no tile-size argument here.  What the GF kernels take besides their
+operands (the matmul's bit-field tables, the GF(2) product's packed row
+masks) is cached per coefficient matrix and device, as the matrices are.
 """
 
 from __future__ import annotations
@@ -55,6 +57,13 @@ def _coeffs_device(coeff_bytes: bytes, n: int, k: int, device: torch.device) -> 
     return torch.from_numpy(host.copy()).to(device)
 
 
+@functools.lru_cache(maxsize=256)
+def _tables_device(coeff_bytes: bytes, n: int, k: int, device: torch.device) -> torch.Tensor:
+    """The matmul kernel's (n, k, 32) bit-field tables of those
+    coefficients, memoized per device beside them."""
+    return gf256_encode.field_tables(_coeffs_device(coeff_bytes, n, k, device))
+
+
 def _coeffs_np(coeffs) -> np.ndarray:
     if isinstance(coeffs, torch.Tensor):
         coeffs = coeffs.cpu().numpy()
@@ -87,12 +96,13 @@ def gf_matmul_bytes_batched(
     if n == 0:
         return torch.zeros((data.shape[0], 0, data.shape[2]), dtype=torch.uint8,
                            device=data.device)
-    coeffs_t = _coeffs_device(coeffs_np.tobytes(), n, k, data.device)
+    key = (coeffs_np.tobytes(), n, k, data.device)
+    coeffs_t = _coeffs_device(*key)
     if backend == "ref":
         return ref.gf_matmul_batched_ref(coeffs_t, data)
     if backend != "kernel":
         raise ValueError(f"unknown backend {backend!r}")
-    return gf256_encode.gf_matmul_bytes_batched(coeffs_t, data)
+    return gf256_encode.gf_matmul_bytes_batched(coeffs_t, data, _tables_device(*key))
 
 
 def rs_encode_stripes(
@@ -152,12 +162,13 @@ def gf_matmul_bytes(
         raise ValueError(f"coeffs {coeffs_np.shape} do not match data {tuple(data.shape)}")
     if n == 0:
         return torch.zeros((0, data.shape[1]), dtype=torch.uint8, device=data.device)
-    coeffs_t = _coeffs_device(coeffs_np.tobytes(), n, k, data.device)
+    key = (coeffs_np.tobytes(), n, k, data.device)
+    coeffs_t = _coeffs_device(*key)
     if backend == "ref":
         return ref.gf_matmul_ref(coeffs_t, data)
     if backend != "kernel":
         raise ValueError(f"unknown backend {backend!r}")
-    return gf256_encode.gf_matmul_bytes(coeffs_t, data)
+    return gf256_encode.gf_matmul_bytes(coeffs_t, data, _tables_device(*key))
 
 
 def rs_encode(
@@ -182,6 +193,12 @@ def rs_block_bitmatrix(k: int, m: int, kind: str, device: torch.device) -> torch
     return torch.from_numpy(big).to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def _rs_block_masks(k: int, m: int, kind: str, device: torch.device) -> torch.Tensor:
+    """The GF(2) kernel's packed row masks of ``rs_block_bitmatrix``."""
+    return gf256_encode.row_masks(rs_block_bitmatrix(k, m, kind, device))
+
+
 def rs_encode_mxu(
     data,
     k: int,
@@ -203,7 +220,8 @@ def rs_encode_mxu(
     shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
     bits = ((data[:, None, :] >> shifts[None, :, None]) & 1).to(torch.int8)
     out_bits = gf256_encode.gf_matmul_mxu(rs_block_bitmatrix(k, m, kind, data.device),
-                                          bits.reshape(8 * k, length))
+                                          bits.reshape(8 * k, length),
+                                          _rs_block_masks(k, m, kind, data.device))
     out_bits = out_bits.reshape(m, 8, length).to(torch.uint8)
     return (out_bits << shifts[None, :, None]).sum(dim=1).to(torch.uint8)
 

@@ -14,8 +14,12 @@ the value) plus 1e-3 of the row's RMS, and in both within a relative RMS
 error of 1e-5 (fp32) or 5e-4 (bf16).  The sizes cover the shapes the kernels
 must take that the main path rarely gives them: ragged and odd lengths,
 unaligned and non-contiguous operands, and codes wide enough that a block
-holds fewer than all output rows.
+holds fewer than all output rows; for the GF(2^8) matmul also matrices of
+zeros and ones (which it skips or XORs), every RS(6,3) decode inverse,
+and every row width its 16-byte, 4-byte and byte paths take.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -97,6 +101,82 @@ def test_unaligned_non_contiguous_operands(cuda):
                        xr.xor_reduce_bytes_batched_plain(x.contiguous()))
 
 
+def _rs63_decode_inverse(lost):
+    g = gf256.generator_matrix(6, 3)
+    return gf256.gf_mat_inv(g[[i for i in range(9) if i not in lost]])
+
+
+def _eye_with_zero_row():
+    eye = np.eye(5, dtype=np.uint8)
+    eye[3] = 0
+    return eye
+
+
+#: coefficient matrices of zeros and ones, which the kernel skips or XORs
+SPECIAL_COEFFS = {
+    "identity": lambda: np.eye(6, dtype=np.uint8),
+    "zero row": _eye_with_zero_row,
+    "all ones": lambda: np.ones((3, 6), dtype=np.uint8),
+    "all zeros": lambda: np.zeros((4, 6), dtype=np.uint8),
+    "ones and general": lambda: np.array([[1, 0, 7], [0, 1, 1], [200, 0, 1]], dtype=np.uint8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPECIAL_COEFFS))
+@pytest.mark.parametrize("length", [1, 33, 1000, 4099, 65536])
+def test_gf_matmul_kernel_zero_and_unit_coefficients(cuda, case, length):
+    coeffs = torch.from_numpy(SPECIAL_COEFFS[case]()).to(cuda)
+    rng = np.random.default_rng(length)
+    data = _bytes(rng, (3, coeffs.shape[1], length), cuda)
+    got = ge.gf_matmul_bytes_batched(coeffs, data)
+    assert torch.equal(got, ge.gf_matmul_bytes_batched_plain(coeffs, data))
+
+
+@pytest.mark.parametrize("length", [1003, 4096])
+def test_gf_matmul_kernel_decodes_every_rs63_erasure_pattern(cuda, length):
+    """The inverted matrix of each of the 84 patterns of 3 lost cells, on
+    the stripes' surviving cells, recovers the data bit for bit."""
+    rng = np.random.default_rng(length)
+    data = _bytes(rng, (2, 6, length), cuda)
+    parity = torch.from_numpy(gf256.generator_matrix(6, 3)[6:].copy()).to(cuda)
+    cells = torch.cat([data, ge.gf_matmul_bytes_batched(parity, data)], dim=1)
+    for lost in itertools.combinations(range(9), 3):
+        survivors = [i for i in range(9) if i not in lost]
+        inv = torch.from_numpy(_rs63_decode_inverse(lost)).to(cuda)
+        got = ge.gf_matmul_bytes_batched(inv, cells[:, survivors])
+        assert torch.equal(got, ge.gf_matmul_bytes_batched_plain(inv, cells[:, survivors])), lost
+        assert torch.equal(got, data), lost
+
+
+@pytest.mark.parametrize("length", [16 * 64, 16 * 64 + 4, 16 * 64 + 8, 16 * 64 + 12, 16 * 64 + 7,
+                                    16 * 64 + 1])
+@pytest.mark.parametrize("offset", [0, 1, 4, 8, 12, 15])
+def test_gf_matmul_kernel_row_widths_and_offsets(cuda, length, offset):
+    """L % 16 in {0, 4, 8, 12} and odd, with the base moved by 0-15 bytes:
+    the 16-byte, 4-byte and byte paths."""
+    rng = np.random.default_rng(length * 16 + offset)
+    flat = _bytes(rng, (2 * 6 * length + offset,), cuda)
+    data = flat[offset:].view(2, 6, length)
+    coeffs = torch.from_numpy(gf256.generator_matrix(6, 3)[6:].copy()).to(cuda)
+    got = ge.gf_matmul_bytes_batched(coeffs, data)
+    assert torch.equal(got, ge.gf_matmul_bytes_batched_plain(coeffs, data))
+    assert torch.equal(ge.gf_matmul_bytes(coeffs, data[1]), got[1])
+
+
+def test_gf_matmul_kernel_takes_precomputed_tables(cuda):
+    rng = np.random.default_rng(21)
+    coeffs = _coeffs(rng, 4, 6, cuda)
+    data = _bytes(rng, (2, 6, 1000), cuda)
+    tables = ge.field_tables(coeffs)
+    padded = torch.empty(tables.numel() + 1, dtype=torch.uint8, device=cuda)
+    unaligned = padded[1:].view(tables.shape).copy_(tables)      # copied to 16 bytes
+    want = ge.gf_matmul_bytes_batched_plain(coeffs, data)
+    assert torch.equal(ge.gf_matmul_bytes_batched(coeffs, data, tables), want)
+    assert torch.equal(ge.gf_matmul_bytes_batched(coeffs, data, unaligned), want)
+    with pytest.raises(ValueError):
+        ge.gf_matmul_bytes_batched(coeffs, data, tables[:, :5])
+
+
 def test_ops_on_card_match_cpu(cuda):
     rng = np.random.default_rng(3)
     data = rng.integers(0, 256, (5, 6, 1000), dtype=np.uint8)
@@ -149,6 +229,29 @@ def test_gf_matmul_mxu_any_int8_values_and_unaligned_rows(cuda):
     got = ge.gf_matmul_mxu(bigmat, bits)
     assert np.array_equal(got.cpu().numpy(), want.astype(np.int8))
     assert torch.equal(got, ge.gf_matmul_mxu_plain(bigmat, bits))
+
+
+@pytest.mark.parametrize("ek", [8, 48, 2040])
+@pytest.mark.parametrize("em", [1, 24, 40])
+@pytest.mark.parametrize("n", [1, 1001, 4096])
+def test_gf_matmul_mxu_kernel_input_widths(cuda, ek, em, n):
+    """One group of 8 input rows, RS(6,3)'s 6, and 255; output rows in one
+    tile, filling it, and over two tiles."""
+    rng = np.random.default_rng(ek * 10 + em + n)
+    bigmat = torch.from_numpy(rng.integers(-128, 128, (em, ek), dtype=np.int8)).to(cuda)
+    bits = torch.from_numpy(rng.integers(-128, 128, (ek, n), dtype=np.int8)).to(cuda)
+    got = ge.gf_matmul_mxu(bigmat, bits)
+    assert torch.equal(got, ge.gf_matmul_mxu_plain(bigmat, bits))
+    assert torch.equal(ge.gf_matmul_mxu(bigmat, bits, ge.row_masks(bigmat)), got)
+
+
+def test_gf_matmul_mxu_kernel_zero_matrix(cuda):
+    bits = torch.ones((48, 1000), dtype=torch.int8, device=cuda)
+    got = ge.gf_matmul_mxu(torch.zeros((24, 48), dtype=torch.int8, device=cuda), bits)
+    assert got.shape == (24, 1000) and not bool(got.any())
+    with pytest.raises(ValueError):
+        ge.gf_matmul_mxu(torch.zeros((24, 48), dtype=torch.int8, device=cuda), bits,
+                         torch.zeros((24, 5), dtype=torch.uint8, device=cuda))
 
 
 @pytest.mark.parametrize("k,m", [(3, 2), (6, 3)])
