@@ -19,8 +19,13 @@ deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
    the flash library, ptxas's registers and spills per tensor-core
    instantiation and its HGMMA (wgmma) instructions from ``cuobjdump
    -sass``, failing if a bf16 tensor-core instantiation has none; for the
-   two redesigned GF kernels, ptxas's registers and spills, and the PRMT,
-   LOP3 and LDS instructions of each instantiation of the GF(2^8) matmul.
+   GF kernels, ptxas's registers and spills, and the PRMT, LOP3 and LDS
+   instructions of each instantiation of the GF(2^8) matmul and the stream
+   scaling, failing if a scaling instantiation has no PRMT or still reads
+   bytes from shared memory (LDS.U8); for the XOR fold's instantiations,
+   ptxas's registers and spills and their global loads, failing if the
+   wide path has no 16-byte load (LDG.E.128).  The scaling and XOR
+   kernels must not spill.
 2. Holds every kernel against its plain PyTorch version on the card.
    Data plane, bit-exact (integer work, tolerance 0): RS(6,3) encode of
    256 stripes of 1 MiB cells, their decode after losing cells (0, 1, 2),
@@ -35,7 +40,11 @@ deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
    skipped) must fail that tolerance.  Each
    kernel's median time over CUDA-event-timed runs, its bound, its plain
    version's time and, where one PyTorch call computes the same function,
-   that call's time (``library_ms``; the port never calls it).
+   that call's time (``library_ms``; the port never calls it).  A
+   data-plane kernel is timed with one launch between two events (``ms``,
+   the wrapper's host time shows in a short kernel) and with ten queued
+   (``ms_queued``), beside a device-to-device copy's rate (the practical
+   rate of a byte-bound kernel; the port never calls it).
 3. The data-plane main path, with every launch counter set to 0 first:
    the entry points (``RSCode`` encode/decode, batched and single-stripe,
    ``stream_encode`` and the parity-node ``xor_reduce_bytes``) against
@@ -82,6 +91,7 @@ STREAM = 16 << 20           # bytes per chunk of the TriEC stripe
 LOST = (0, 1, 2)            # cells lost before the decode
 KERNEL_RUNS = 20
 PLAIN_RUNS = 5
+QUEUED = 10                 # launches between two events for ms_queued
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 # H100 SXM peak for the inputs' type: bf16 dense on the tensor cores; fp32
 # outside them (an exact fp32 product has no faster unit)
@@ -155,8 +165,10 @@ def max_abs_err(a, b, step: int = 1 << 28) -> int:
     return err
 
 
-def median_ms(fn, runs: int) -> float:
-    """Median of ``runs`` CUDA-event-timed calls of ``fn``, after one warm-up."""
+def median_ms(fn, runs: int, per_event: int = 1) -> float:
+    """Median over ``runs`` CUDA-event pairs, after one warm-up, of the time
+    per call of ``fn``, with ``per_event`` calls back to back between the
+    two events of a pair."""
     import torch
 
     fn()
@@ -166,10 +178,11 @@ def median_ms(fn, runs: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per_event):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_event)
     return statistics.median(times)
 
 
@@ -191,6 +204,7 @@ def measure(name, source, replaces, kernel, plain, args, nbytes, shape, extra_ch
         "max_abs_err": err,
         "tolerance": 0,
         "ms": median_ms(lambda: kernel(*args), KERNEL_RUNS),
+        "ms_queued": median_ms(lambda: kernel(*args), KERNEL_RUNS, QUEUED),
         "plain_ms": median_ms(lambda: plain(*args), PLAIN_RUNS),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
@@ -199,8 +213,9 @@ def measure(name, source, replaces, kernel, plain, args, nbytes, shape, extra_ch
         "shape": shape,
         "bytes": nbytes,
     }
-    print(f"  {name} {shape}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
-          f"bound {row['bound_ms']:.4f} ms), max |err| {err}", flush=True)
+    print(f"  {name} {shape}: {row['ms']:.4f} ms ({QUEUED} queued: {row['ms_queued']:.4f} ms a "
+          f"launch; plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms), max |err| "
+          f"{err}", flush=True)
     return row
 
 
@@ -218,24 +233,47 @@ def ptxas_usage(source: str) -> dict[str, list[str]]:
     return usage
 
 
-def sass_counts(source: str, opcodes: tuple[str, ...]) -> dict[str, dict[str, int]]:
-    """The instructions of each opcode in each function of the built
-    ``csrc/<source>.cu`` (``cuobjdump -sass``): static counts, not runs."""
+def sass_ops(source: str) -> dict[str, list[list[str]]]:
+    """The instructions of each function of the built ``csrc/<source>.cu``
+    in program order (``cuobjdump -sass``), each as its mnemonic and
+    operands, predicate dropped: ``["LOP3.LUT", "R4,", "R4,", "R8,", "RZ,",
+    "0x96,", "!PT"]``."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(source))],
                           capture_output=True, text=True, check=True).stdout
-    pattern = re.compile(r"\b(" + "|".join(opcodes) + r")\b")
-    counts, current = {}, None
+    instruction = re.compile(r"^\s*/\*[0-9a-f]+\*/\s*(.*)$")
+    ops, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             current = line.split("Function :", 1)[1].strip()
-            counts[current] = dict.fromkeys(opcodes, 0)
-        elif current:
-            for op in pattern.findall(line.split(";")[0]):
-                counts[current][op] += 1
-    return counts
+            ops[current] = []
+            continue
+        found = instruction.match(line.split(";")[0])
+        if current and found:
+            tokens = [t for t in found.group(1).split() if not t.startswith("@")]
+            if tokens:
+                ops[current].append(tokens)
+    return ops
+
+
+def is_op(mnemonic: str, opcode: str) -> bool:
+    """``mnemonic`` is ``opcode`` or one of its forms (``LDS`` matches
+    ``LDS.U8``, ``LDG.E.128`` matches ``LDG.E.128.CONSTANT``)."""
+    return mnemonic == opcode or mnemonic.startswith(opcode + ".")
+
+
+def sass_counts(source: str, opcodes: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    """The instructions of each opcode (and its forms) in each function of
+    the built ``csrc/<source>.cu``: static counts, not runs."""
+    return {name: {op: sum(is_op(ins[0], op) for ins in ops) for op in opcodes}
+            for name, ops in sass_ops(source).items()}
+
+
+def spills(lines: list[str]) -> int:
+    """Bytes of spill stores in ptxas's lines for one kernel."""
+    return sum(int(n) for line in lines for n in re.findall(r"(\d+) bytes spill stores", line))
 
 
 def inspect_flash_build() -> dict:
@@ -264,34 +302,86 @@ def inspect_flash_build() -> dict:
 
 
 def inspect_gf_build() -> dict:
-    """What the compiler made of the two redesigned GF kernels: ptxas's
-    registers and spills for each instantiation of ``gf_matmul_kernel``
-    (tile heights 1-8, wide and byte paths) and for ``gf_mxu_kernel``, and
-    the PRMT, LOP3 and LDS instructions in each matmul instantiation (the
-    bit-field lookups, their XORs and the table reads).  Fails if an
-    instantiation is missing or has no PRMT."""
-    ptxas = {name: lines for source in ("gf256_encode", "gf_mxu")
-             for name, lines in ptxas_usage(source).items()
-             if "gf_matmul_kernel" in name or "gf_mxu_kernel" in name}
-    counts = {}
-    for name, c in sass_counts("gf256_encode", ("PRMT", "LOP3", "LDS")).items():
+    """What the compiler made of the data-plane kernels: ptxas's registers
+    and spills for each instantiation of ``gf_matmul_kernel`` (tile heights
+    1-8, wide and byte paths), ``gf_scale_kernel`` (wide and byte paths),
+    ``xor_reduce_kernel`` (the same) and ``gf_mxu_kernel``; the PRMT, LOP3
+    and LDS instructions (LDS.U8: byte reads from shared memory) in each
+    matmul and scaling instantiation (the bit-field lookups, their XORs and
+    the table reads); the global loads of each XOR instantiation and the
+    16-byte loads issued from the first of them to the first XOR (a LOP3
+    of truth table 0x96 or 0x3c): the loads of one column in flight
+    together.  Fails if an instantiation
+    is missing, if a matmul or scaling one has no PRMT, if a scaling one
+    reads bytes from shared memory, if the XOR fold's wide path has no
+    16-byte load, or if a scaling or XOR kernel spills."""
+    ptxas = {name: lines for source in ("gf256_encode", "gf_mxu", "xor_reduce")
+             for name, lines in ptxas_usage(source).items()}
+
+    def ptxas_of(name):
+        return "; ".join(ptxas.get(name, ["not built in this run"]))
+
+    counts, scale = {}, {}
+    for name, c in sass_counts("gf256_encode", ("PRMT", "LOP3", "LDS", "LDS.U8")).items():
         found = re.search(r"gf_matmul_kernelILi(\d+)ELb([01])E", name)
         if found:
             counts[(int(found.group(1)), found.group(2) == "1")] = (name, c)
+        found = re.search(r"gf_scale_kernelILb([01])E", name)
+        if found:
+            scale[found.group(1) == "1"] = (name, c)
     want = [(rows, wide) for rows in range(1, 9) for wide in (False, True)]
     check(sorted(counts) == want, f"expected gf_matmul_kernel<1..8, byte/wide>, found "
           f"{sorted(counts)}")
     check(all(c["PRMT"] > 0 for _, c in counts.values()), f"an instantiation has no PRMT: {counts}")
+    check(sorted(scale) == [False, True], f"expected gf_scale_kernel<byte/wide>, found "
+          f"{sorted(scale)}")
+    check(all(c["PRMT"] > 0 and c["LDS.U8"] == 0 for _, c in scale.values()),
+          f"a gf_scale_kernel instantiation has no PRMT or reads bytes from shared memory: "
+          f"{scale}")
     for (rows, wide), (name, c) in sorted(counts.items()):
         print(f"  gf_matmul_kernel<{rows}, {'wide' if wide else 'bytes'}>: PRMT {c['PRMT']}, "
-              f"LOP3 {c['LOP3']}, LDS {c['LDS']}; ptxas "
-              f"{'; '.join(ptxas.get(name, ['not built in this run']))}", flush=True)
+              f"LOP3 {c['LOP3']}, LDS {c['LDS']}; ptxas {ptxas_of(name)}", flush=True)
+    for wide, (name, c) in sorted(scale.items()):
+        print(f"  gf_scale_kernel<{'wide' if wide else 'bytes'}>: PRMT {c['PRMT']}, LOP3 "
+              f"{c['LOP3']}, LDS {c['LDS']} (LDS.U8 {c['LDS.U8']}); ptxas {ptxas_of(name)}",
+              flush=True)
+
+    fold = {}
+    for name, ops in sass_ops("xor_reduce").items():
+        found = re.search(r"xor_reduce_kernelILb([01])E", name)
+        if not found:
+            continue
+        mnemonics = [ins[0] for ins in ops]
+        first_load = next((i for i, m in enumerate(mnemonics) if is_op(m, "LDG")), 0)
+        first_xor = next((i for i, ins in enumerate(ops) if i > first_load
+                          and is_op(ins[0], "LOP3") and {"0x96,", "0x3c,"} & set(ins)),
+                         len(ops))
+        fold[found.group(1) == "1"] = (name, {
+            "LDG.E.128": sum(is_op(m, "LDG.E.128") for m in mnemonics),
+            "LDG": sum(is_op(m, "LDG") for m in mnemonics),
+            "LDG.E.128 before the first XOR": sum(is_op(m, "LDG.E.128")
+                                                  for m in mnemonics[first_load:first_xor]),
+            "LOP3": sum(is_op(m, "LOP3") for m in mnemonics)})
+    check(sorted(fold) == [False, True], f"expected xor_reduce_kernel<byte/wide>, found "
+          f"{sorted(fold)}")
+    check(fold[True][1]["LDG.E.128"] > 0, f"the XOR fold's wide path has no LDG.E.128: {fold}")
+    for wide, (name, c) in sorted(fold.items()):
+        print(f"  xor_reduce_kernel<{'wide' if wide else 'bytes'}>: {c}; ptxas {ptxas_of(name)}",
+              flush=True)
+    spilled = {name: spills(lines) for name, lines in ptxas.items()
+               if ("gf_scale_kernel" in name or "xor_reduce_kernel" in name) and spills(lines)}
+    check(not spilled, f"the scaling or XOR kernel spills: {spilled}")
     for name, lines in ptxas.items():
         if "gf_mxu_kernel" in name:
             print(f"  gf_mxu_kernel: ptxas {'; '.join(lines)}", flush=True)
-    return {"sass": {f"gf_matmul_kernel<{r}, {'wide' if w else 'bytes'}>": c
-                     for (r, w), (_, c) in sorted(counts.items())},
-            "ptxas": ptxas}
+    return {"sass": {**{f"gf_matmul_kernel<{r}, {'wide' if w else 'bytes'}>": c
+                        for (r, w), (_, c) in sorted(counts.items())},
+                     **{f"gf_scale_kernel<{'wide' if w else 'bytes'}>": c
+                        for w, (_, c) in sorted(scale.items())},
+                     **{f"xor_reduce_kernel<{'wide' if w else 'bytes'}>": c
+                        for w, (_, c) in sorted(fold.items())}},
+            "ptxas": {name: lines for name, lines in ptxas.items()
+                      if "flash" not in name}}
 
 
 def check_kernels(dev) -> tuple[list[dict], dict]:
@@ -341,9 +431,9 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
     want_parity = ge.gf_matmul_bytes_batched_plain(parity, stripe[None])[0]
     rows["gf_scale_bytes"] = measure(
         "gf_scale_bytes", src_ge, "src/repro/kernels/gf256_encode.py:184",
-        ge.gf_scale_bytes, ge.gf_scale_bytes_plain, (parity, stripe),
-        K * STREAM + M * K * STREAM, f"scale ({M},{K}) x ({K},{STREAM})")
-    streams = ge.gf_scale_bytes(parity, stripe)             # (m, k, L)
+        lambda c, x: ge.gf_scale_bytes(c, x, tables[id(c)]), ge.gf_scale_bytes_plain,
+        (parity, stripe), K * STREAM + M * K * STREAM, f"scale ({M},{K}) x ({K},{STREAM})")
+    streams = ge.gf_scale_bytes(parity, stripe, tables[id(parity)])   # (m, k, L)
     rows["xor_reduce_bytes_batched"] = measure(
         "xor_reduce_bytes_batched", src_xr, "src/repro/kernels/xor_reduce.py:57",
         xr.xor_reduce_bytes_batched, xr.xor_reduce_bytes_batched_plain, (streams,),
@@ -364,7 +454,7 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
 
     # ragged lengths and unaligned, non-contiguous operands (the byte and
     # 4-byte paths), and coefficient matrices the matmul skips (zeros) or
-    # XORs (ones) through
+    # XORs (ones) through, and the stream scaling stores as zeros or copies
     eye = torch.eye(K, dtype=torch.uint8, device=dev)
     zeros = torch.zeros((M, K), dtype=torch.uint8, device=dev)
     ragged = {}
@@ -379,6 +469,9 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
             (ge.gf_matmul_bytes_batched(zeros, x), torch.zeros_like(x[:, :M])),
             (ge.gf_matmul_bytes(parity, x[1]), ge.gf_matmul_bytes_batched_plain(parity, x[1:2])[0]),
             (ge.gf_scale_bytes(parity, x[2]), ge.gf_scale_bytes_plain(parity, x[2])),
+            (ge.gf_scale_bytes(eye, x[2]), ge.gf_scale_bytes_plain(eye, x[2])),
+            (ge.gf_scale_bytes(zeros, x[2]), torch.zeros((M, K, length), dtype=torch.uint8,
+                                                         device=dev)),
             (xr.xor_reduce_bytes_batched(x), xr.xor_reduce_bytes_batched_plain(x)),
             (xr.xor_reduce_bytes(x[0]), xr.xor_reduce_bytes_batched_plain(x[:1])[0]),
         ]
@@ -388,6 +481,25 @@ def check_kernels(dev) -> tuple[list[dict], dict]:
     print(f"  ragged / unaligned lengths {sorted(ragged)}, identity and zero coefficients: "
           "bit-exact", flush=True)
     return list(rows.values()), ragged
+
+
+def copy_rate(dev) -> dict:
+    """The card's practical rate for a byte-bound kernel: a device-to-device
+    ``copy_`` of the TriEC streams' bytes (m * k * 16 MiB read, as many
+    written), ten queued between two events.  A yardstick for the data-plane
+    kernels' ``ms`` beside their bound; the port never calls it."""
+    import torch
+
+    src = torch.empty(M * K * STREAM, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = median_ms(lambda: dst.copy_(src), KERNEL_RUNS, QUEUED)
+    moved = 2 * src.numel()
+    res = {"bytes": moved, "ms": ms, "tb_per_s": moved / ms / 1e9,
+           "share_of_peak": moved / ms / 1e9 / (HBM_BYTES_PER_S / 1e12)}
+    print(f"  device copy of {src.numel()} B: {ms:.4f} ms a copy ({QUEUED} queued), "
+          f"{res['tb_per_s']:.3f} TB/s moved, {res['share_of_peak']:.3f} of 3.35 TB/s", flush=True)
+    del src, dst
+    return res
 
 
 def closeness(got, want, tol: dict) -> tuple[float, float, float]:
@@ -816,6 +928,7 @@ def main() -> int:
 
     print("phase 2: kernels against their plain versions", flush=True)
     dataplane_rows, _ = check_kernels(dev)
+    copy = copy_rate(dev)
     torch.cuda.empty_cache()
     attention_rows = check_attention_kernels(dev)
     attention_rows[0]["hgmma"] = sum(flash_build["hgmma"].values())
@@ -839,7 +952,7 @@ def main() -> int:
     count_launches(attention_rows, counters, "attention")
 
     print(json.dumps({"cluster": cluster, "attention": attention, "flash_build": flash_build,
-                      "gf_build": gf_build}))
+                      "gf_build": gf_build, "copy": copy}))
     print(card)
     print(json.dumps({"kernels": dataplane_rows + attention_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

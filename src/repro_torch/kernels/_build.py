@@ -10,6 +10,7 @@ as it is.  Nothing is compiled until a kernel is first launched (or
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +19,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -88,6 +91,9 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu`` (built on first use), with
     ``argtypes`` set from ``signatures`` and an ``int`` CUDA error code as
     every function's return value."""
+    lib = _libs.get(name)      # a loaded library is never replaced: no lock
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -100,6 +106,16 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             lib.cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def on_device(device: torch.device) -> contextlib.AbstractContextManager:
+    """``torch.cuda.device(device)`` when ``device`` is not the current CUDA
+    device, else a context that does nothing.  A kernel launches on the
+    current device; entering and leaving the device costs host time on
+    every launch, so it is done only where it is needed."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

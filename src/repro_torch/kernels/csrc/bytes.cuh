@@ -8,6 +8,10 @@
 #pragma once
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ p, int nb, bool vec) {
@@ -64,29 +68,76 @@ inline int row_width(int64_t L, const void* a, const void* b) {
   return 1;
 }
 
+// 16 bytes of a row: one 16-byte access on the wide path (kWide: the
+// operands' width is 16), else load16/store16 at `width`.
+template <bool kWide>
+__device__ __forceinline__ uint4 load_row(const uint8_t* __restrict__ p, int nb, int width) {
+  return kWide ? __ldg(reinterpret_cast<const uint4*>(p)) : load16(p, nb, width);
+}
+
+template <bool kWide>
+__device__ __forceinline__ void store_row(uint8_t* __restrict__ p, uint4 x, int nb, int width) {
+  if (kWide)
+    *reinterpret_cast<uint4*>(p) = x;
+  else
+    store16(p, x, nb, width);
+}
+
+// A grid-stride walk over the cells (row, col) of a row-major grid of
+// `cols` columns.  The first cell's index is divided once, when the thread
+// starts; each step then adds the stride's (rows, cols) and carries once.
+// A GPU has no integer divider: a 64-bit division is a software routine of
+// tens of instructions, too many to pay for every 16 bytes.
+struct GridWalk {
+  int64_t row, col;
+  int64_t step_row, step_col, cols;
+
+  __device__ explicit GridWalk(int64_t cols_) : cols(cols_) {
+    const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+    const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+    row = first / cols;
+    col = first - row * cols;
+    step_row = stride / cols;
+    step_col = stride - step_row * cols;
+  }
+
+  __device__ __forceinline__ void next() {
+    row += step_row;
+    col += step_col;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
+    }
+  }
+};
+
 // Resident blocks of `kernel` on every SM of the current device, for a
 // grid-stride loop over `items` work items: enough to cover them, as many
 // as the kernel's registers and shared memory let the card hold at once.
+// The SM count and the occupancy are asked of the runtime once per device,
+// kernel and shared-memory size, and cached: the two queries cost more
+// host time than the launch itself.
 template <typename Kernel>
 int resident_grid(Kernel kernel, int64_t items, int threads, size_t smem) {
-  int dev = 0, sms = 1, per_sm = 1;
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, size_t>, int64_t> caps;
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (per_sm < 1) per_sm = 1;
+  int64_t cap;
+  {
+    const std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple(dev, reinterpret_cast<const void*>(kernel), threads, smem);
+    auto found = caps.find(key);
+    if (found == caps.end()) {
+      int sms = 1, per_sm = 1;
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+      if (per_sm < 1) per_sm = 1;
+      found = caps.emplace(key, int64_t(sms) * per_sm).first;
+    }
+    cap = found->second;
+  }
   const int64_t need = (items + threads - 1) / threads;
-  const int64_t cap = int64_t(sms) * per_sm;
-  return int(need < cap ? need : cap);
-}
-
-// Blocks for a grid-stride loop over `items` work items: enough to cover
-// them, capped at `per_sm` resident blocks on every SM of the current device.
-inline int grid_blocks(int64_t items, int threads, int per_sm) {
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t need = (items + threads - 1) / threads;
-  const int64_t cap = int64_t(sms) * per_sm;
   return int(need < cap ? need : cap);
 }
 

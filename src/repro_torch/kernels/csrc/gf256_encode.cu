@@ -48,8 +48,14 @@
 // as the registers let it hold (4 of 256 threads from R = 4 on, whose
 // register count is capped for it).
 //
-// gf_scale_kernel keeps the first design: one lookup in a 256-entry product
-// table per byte, the tables built per block in shared memory.
+// gf_scale_kernel is that body without the fold over j: a thread owns 16
+// bytes of one input row j, splits its 4 words once and writes all m
+// products c[i, j] * x of them (a zero coefficient stores zeros, a unit one
+// the word itself), loading the next item's 16 bytes before it issues this
+// one's stores.  It keeps no accumulators, so m costs no registers; the
+// output rows tile over grid.y only when their tables exceed the default
+// 48 KiB.  Its grid-stride walk over (j, column) steps without a 64-bit
+// division per item (GridWalk in bytes.cuh).
 
 #include "bytes.cuh"
 
@@ -57,7 +63,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 8;
-constexpr int kBlocksPerSm = 8;
 constexpr int kSmemDefault = 48 * 1024;
 
 // -- gf_matmul_kernel: bit-field tables ------------------------------------------
@@ -98,19 +103,9 @@ __device__ __forceinline__ uint32_t mul4_fields(const uint4& ab, uint32_t c4, co
   return prmt(ab.x, ab.y, f.a) ^ prmt(ab.z, ab.w, f.b) ^ prmt(c4, 0, f.c);
 }
 
-// 16 bytes of a row: one 16-byte access on the wide path, else load16.
-template <bool kWide>
-__device__ __forceinline__ uint4 load_row(const uint8_t* __restrict__ p, int nb, int width) {
-  return kWide ? __ldg(reinterpret_cast<const uint4*>(p)) : load16(p, nb, width);
-}
-
-template <bool kWide>
-__device__ __forceinline__ void store_row(uint8_t* __restrict__ p, uint4 x, int nb, int width) {
-  x = make_uint4(swap12(x.x), swap12(x.y), swap12(x.z), swap12(x.w));
-  if (kWide)
-    *reinterpret_cast<uint4*>(p) = x;
-  else
-    store16(p, x, nb, width);
+// Products or sums in the selectors' byte order back in the row's.
+__device__ __forceinline__ uint4 swap12(const uint4& x) {
+  return make_uint4(swap12(x.x), swap12(x.y), swap12(x.z), swap12(x.w));
 }
 
 // out[s, i, :] = XOR_j c[i, j] * data[s, j, :] for the rows of tile
@@ -163,7 +158,7 @@ gf_matmul_kernel(const uint4* __restrict__ tables, const uint8_t* __restrict__ d
     uint8_t* dst = out + (s * n + row0) * L + p;
 #pragma unroll
     for (int t = 0; t < R; ++t)
-      if (t < rows) store_row<kWide>(dst + int64_t(t) * L, acc[t], nb, width);
+      if (t < rows) store_row<kWide>(dst + int64_t(t) * L, swap12(acc[t]), nb, width);
   }
 }
 
@@ -186,74 +181,63 @@ cudaError_t launch_matmul(const uint4* tables, const uint8_t* data, uint8_t* out
   return launch_tile<R, false>(tables, data, out, S, n, k, L, width, stream);
 }
 
-// -- gf_scale_kernel: 256-entry product tables ------------------------------------
+// -- gf_scale_kernel: the same lookups, no fold -------------------------------------
 
-// Russian-peasant multiply in GF(2^8) mod x^8 + x^4 + x^3 + x^2 + 1.
-__device__ __forceinline__ uint32_t gf_mul(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-  for (int i = 0; i < 8; ++i) {
-    if (b & 1u) r ^= a;
-    b >>= 1;
-    a <<= 1;
-    if (a & 0x100u) a ^= 0x11du;
-  }
-  return r;
-}
-
-// tab[e] = coeffs[e / 256] * (e % 256) for the rows*k coefficients that
-// start at `coeffs` (row-major, so e / 256 == t*k + j).
-__device__ void build_tables(uint8_t* tab, const uint8_t* __restrict__ coeffs, int rows, int k) {
-  const int total = rows * k * 256;
-  for (int e = threadIdx.x; e < total; e += blockDim.x)
-    tab[e] = uint8_t(gf_mul(coeffs[e >> 8], uint32_t(e & 255)));
-}
-
-// Four byte products through one coefficient's 256-entry table.
-__device__ __forceinline__ uint32_t mul4(const uint8_t* t, uint32_t x) {
-  return uint32_t(t[x & 255u]) | (uint32_t(t[(x >> 8) & 255u]) << 8) |
-         (uint32_t(t[(x >> 16) & 255u]) << 16) | (uint32_t(t[x >> 24]) << 24);
-}
-
-// out[i, j, :] = c[i, j] * data[j, :]  (no fold over j)
+// out[row0 + t, j, :] = c[row0 + t, j] * data[j, :] for the `tile` output
+// rows of tile blockIdx.y (fewer in the last).  `tables` is (m, k, 32).
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
-gf_scale_kernel(const uint8_t* __restrict__ coeffs, const uint8_t* __restrict__ data,
-                uint8_t* __restrict__ out, int m, int k, int64_t L, int rows_per_block,
-                bool vec) {
-  extern __shared__ uint8_t tab[];
-  const int row0 = blockIdx.y * rows_per_block;
-  const int rows = min(rows_per_block, m - row0);
-  build_tables(tab, coeffs + int64_t(row0) * k, rows, k);
+gf_scale_kernel(const uint4* __restrict__ tables, const uint8_t* __restrict__ data,
+                uint8_t* __restrict__ out, int m, int k, int64_t L, int tile, int width) {
+  extern __shared__ uint4 field_tab[];    // [row t][j][T_a T_b, T_c and zeros]
+  const int row0 = blockIdx.y * tile;
+  const int rows = min(tile, m - row0);
+  const uint4* src_tab = tables + int64_t(row0) * k * 2;
+  for (int e = threadIdx.x; e < rows * k * 2; e += blockDim.x) field_tab[e] = src_tab[e];
   __syncthreads();
-  const int64_t words = (L + 3) >> 2;
-  const int64_t items = int64_t(k) * words;
-  for (int64_t it = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; it < items;
-       it += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t j = it / words;
-    const int64_t p = (it - j * words) << 2;
-    const int nb = L - p < 4 ? int(L - p) : 4;
-    const uint32_t x = load4(data + j * L + p, nb, vec);
-#pragma unroll
-    for (int t = 0; t < kMaxRows; ++t)
-      if (t < rows)
-        store4(out + ((int64_t(row0) + t) * k + j) * L + p,
-               mul4(tab + (t * k + int(j)) * 256, x), nb, vec);
+
+  const int64_t chunks = (L + 15) >> 4;
+  const int64_t row_stride = int64_t(k) * L;    // from output row t to t + 1
+  const auto bytes_at = [L](int64_t p) { return L - p < 16 ? int(L - p) : 16; };
+  GridWalk w(chunks);                           // (j, 16-byte column)
+  uint4 next;
+  if (w.row < k) next = load_row<kWide>(data + w.row * L + (w.col << 4), bytes_at(w.col << 4),
+                                        width);
+  while (w.row < k) {
+    const int j = int(w.row);
+    const int64_t p = w.col << 4;
+    const int nb = bytes_at(p);
+    const uint4 x = next;
+    w.next();
+    if (w.row < k) next = load_row<kWide>(data + w.row * L + (w.col << 4),
+                                          bytes_at(w.col << 4), width);
+    const Fields f0 = split(x.x), f1 = split(x.y), f2 = split(x.z), f3 = split(x.w);
+    uint8_t* dst = out + (int64_t(row0) * k + j) * L + p;
+    for (int t = 0; t < rows; ++t, dst += row_stride) {
+      const uint4 ab = field_tab[(t * k + j) * 2];
+      const uint32_t c = (ab.x >> 8) & 0xffu;   // T_a[1] = c * 1
+      uint4 y = x;
+      if (c == 0) {
+        y = make_uint4(0, 0, 0, 0);
+      } else if (c != 1) {
+        const uint32_t c4 = field_tab[(t * k + j) * 2 + 1].x;
+        y = swap12(make_uint4(mul4_fields(ab, c4, f0), mul4_fields(ab, c4, f1),
+                              mul4_fields(ab, c4, f2), mul4_fields(ab, c4, f3)));
+      }
+      store_row<kWide>(dst, y, nb, width);
+    }
   }
 }
 
-// gf_scale_kernel's output rows per block: all of them up to kMaxRows while
-// their tables fit the default 48 KiB; at least one (k * 256 <= 64 KiB,
-// opted in below).
-int rows_per_block(int64_t n, int64_t k) {
-  int64_t r = kSmemDefault / (k * 256);
-  if (r < 1) r = 1;
-  if (r > kMaxRows) r = kMaxRows;
-  return int(r < n ? r : n);
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem <= size_t(kSmemDefault)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+template <bool kWide>
+cudaError_t launch_scale(const uint4* tables, const uint8_t* data, uint8_t* out, int m, int k,
+                         int64_t L, int tile, int width, cudaStream_t stream) {
+  const size_t smem = size_t(tile) * k * kFieldTableBytes;
+  const dim3 grid(resident_grid(gf_scale_kernel<kWide>, k * ((L + 15) / 16), kThreads, smem),
+                  unsigned((m + tile - 1) / tile));
+  gf_scale_kernel<kWide><<<grid, kThreads, smem, stream>>>(tables, data, out, m, k, L, tile,
+                                                          width);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -287,19 +271,22 @@ extern "C" int gf_matmul_bytes_batched(const void* tables, const void* data, voi
   }
 }
 
-// (m, k) coefficients x (k, L) bytes -> (m, k, L) bytes.  Contiguous rows;
-// the caller checks m, L >= 1 and 1 <= k <= 256.
-extern "C" int gf_scale_bytes(const void* coeffs, const void* data, void* out, int64_t m,
+// (m, k, 32) bit-field tables x (k, L) bytes -> (m, k, L) bytes.  Contiguous
+// rows and 16-byte aligned tables; the caller checks m, L >= 1 and
+// 1 <= k <= 256.
+extern "C" int gf_scale_bytes(const void* tables, const void* data, void* out, int64_t m,
                               int64_t k, int64_t L, void* stream) {
-  const int rpb = rows_per_block(m, k);
-  const size_t smem = size_t(rpb) * k * 256;
-  cudaError_t err = prepare(gf_scale_kernel, smem);
-  if (err != cudaSuccess) return int(err);
-  const bool vec = (L % 4 == 0) && aligned4(data) && aligned4(out);
-  const dim3 grid(grid_blocks(k * ((L + 3) / 4), kThreads, kBlocksPerSm),
-                  unsigned((m + rpb - 1) / rpb));
-  gf_scale_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(coeffs), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), int(m), int(k), L, rpb, vec);
-  return int(cudaGetLastError());
+  if (reinterpret_cast<uintptr_t>(tables) & 15u) return int(cudaErrorMisalignedAddress);
+  // output rows per tile: all of them while their tables fit the default
+  // 48 KiB of shared memory (at least 6: k <= 256)
+  int64_t tile = kSmemDefault / (k * kFieldTableBytes);
+  tile = tile < m ? tile : m;
+  const auto* t = static_cast<const uint4*>(tables);
+  const auto* d = static_cast<const uint8_t*>(data);
+  auto* o = static_cast<uint8_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int width = row_width(L, data, out);
+  if (width == 16)
+    return int(launch_scale<true>(t, d, o, int(m), int(k), L, int(tile), width, st));
+  return int(launch_scale<false>(t, d, o, int(m), int(k), L, int(tile), width, st));
 }

@@ -167,7 +167,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
                    for t in (q, k, v))
         lib = _lib()
-        with torch.cuda.device(q.device):
+        with _build.on_device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             rc = lib.flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],

@@ -16,11 +16,11 @@ each with its plain PyTorch version beside it:
 
 Bound: device memory.  The matmul moves S*(k+n)*L bytes, the scaling
 stage k*L + m*k*L.  Both read bytes and write bytes in one pass (no
-bit-plane packing around the kernel).  The matmul looks its products up
-in bit-field tables (``field_tables``: c*x = T_a[x & 7] ^
-T_b[(x >> 3) & 7] ^ T_c[x >> 6]) with byte permutes, skips zero
-coefficients and XORs unit ones; the scaling stage keeps one 256-entry
-product table per coefficient.  ``gf_matmul_mxu`` is the GF(2) form on unpacked bits,
+bit-plane packing around the kernel).  Both look their products up in
+bit-field tables (``field_tables``: c*x = T_a[x & 7] ^ T_b[(x >> 3) & 7]
+^ T_c[x >> 6]) with byte permutes, and take zero and unit coefficients
+without a lookup; the scaling stage is the matmul's body without the
+fold over j.  ``gf_matmul_mxu`` is the GF(2) form on unpacked bits,
 (bigmat @ bits) & 1, moving 8k*n + 8m*n bytes: each output row's mask
 bits packed a byte per 8 input rows (``row_masks``), the input's low bits
 packed the same way, an AND-XOR per row and a bytewise parity at the end;
@@ -161,7 +161,7 @@ def _launch_matmul(tables: torch.Tensor, data: torch.Tensor, out: torch.Tensor) 
     lib = _lib()
     data = data.contiguous()
     s, k, length = data.shape
-    with torch.cuda.device(data.device):
+    with _build.on_device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = lib.gf_matmul_bytes_batched(tables.data_ptr(), data.data_ptr(), out.data_ptr(),
                                          s, tables.shape[0], k, length, stream)
@@ -199,8 +199,10 @@ def gf_matmul_bytes(coeffs: torch.Tensor, data: torch.Tensor,
     return out
 
 
-def gf_scale_bytes(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """(m, k) uint8 coefficients x (k, L) uint8 chunks -> (m, k, L) uint8 streams."""
+def gf_scale_bytes(coeffs: torch.Tensor, data: torch.Tensor,
+                   tables: torch.Tensor | None = None) -> torch.Tensor:
+    """(m, k) uint8 coefficients x (k, L) uint8 chunks -> (m, k, L) uint8 streams
+    (``tables`` as for ``gf_matmul_bytes_batched``)."""
     _check(coeffs, data, 2)
     if data.device.type == "cpu":
         return gf_scale_bytes_plain(coeffs, data)
@@ -208,12 +210,12 @@ def gf_scale_bytes(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     length = data.shape[1]
     out = torch.empty((m, k, length), dtype=torch.uint8, device=data.device)
     if out.numel():
+        tables = _aligned_tables(coeffs, tables)
         lib = _lib()
-        coeffs = coeffs.contiguous()
         data = data.contiguous()
-        with torch.cuda.device(data.device):
+        with _build.on_device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
-            rc = lib.gf_scale_bytes(coeffs.data_ptr(), data.data_ptr(), out.data_ptr(),
+            rc = lib.gf_scale_bytes(tables.data_ptr(), data.data_ptr(), out.data_ptr(),
                                     m, k, length, stream)
         _build.check(lib, rc, "gf_scale_bytes")
         gf_scale_bytes.launches += 1
@@ -265,7 +267,7 @@ def gf_matmul_mxu(bigmat: torch.Tensor, bits: torch.Tensor,
         lib = _mxu_lib()
         masks = masks.contiguous()
         bits = bits.contiguous()
-        with torch.cuda.device(bits.device):
+        with _build.on_device(bits.device):
             stream = torch.cuda.current_stream(bits.device).cuda_stream
             rc = lib.gf_matmul_mxu(masks.data_ptr(), bits.data_ptr(), out.data_ptr(),
                                    em, ek, n, stream)

@@ -12,8 +12,9 @@ LUT oracles of :mod:`repro_torch.kernels.ref` instead of the kernels.
 The kernels read and write bytes and mask ragged rows themselves, so
 unlike the reference there is no padding to a tile, no bit-plane packing
 and no tile-size argument here.  What the GF kernels take besides their
-operands (the matmul's bit-field tables, the GF(2) product's packed row
-masks) is cached per coefficient matrix and device, as the matrices are.
+operands (the bit-field tables of the matmul and the stream scaling, the
+GF(2) product's packed row masks) is cached per coefficient matrix and
+device, as the matrices are.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def _coeffs_device(coeff_bytes: bytes, n: int, k: int, device: torch.device) -> 
 
 @functools.lru_cache(maxsize=256)
 def _tables_device(coeff_bytes: bytes, n: int, k: int, device: torch.device) -> torch.Tensor:
-    """The matmul kernel's (n, k, 32) bit-field tables of those
+    """The GF(2^8) kernels' (n, k, 32) bit-field tables of those
     coefficients, memoized per device beside them."""
     return gf256_encode.field_tables(_coeffs_device(coeff_bytes, n, k, device))
 
@@ -137,8 +138,8 @@ def gf_scale_streams(
         raise ValueError(f"coeffs {coeffs_np.shape} do not match data {tuple(data.shape)}")
     if m == 0:
         return torch.zeros((0, k, data.shape[1]), dtype=torch.uint8, device=data.device)
-    coeffs_t = _coeffs_device(coeffs_np.tobytes(), m, k, data.device)
-    return gf256_encode.gf_scale_bytes(coeffs_t, data)
+    key = (coeffs_np.tobytes(), m, k, data.device)
+    return gf256_encode.gf_scale_bytes(_coeffs_device(*key), data, _tables_device(*key))
 
 
 def gf_matmul_bytes(

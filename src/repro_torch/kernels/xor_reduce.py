@@ -11,9 +11,10 @@ with its plain PyTorch version beside it:
                               (the S = 1 launch of the same kernel)
   ==========================  ================================================
 
-Bound: device memory, S*(n+1)*L bytes.  Design: one thread per 4 output
-bytes folds its n input words in a register; ragged tails are masked in
-the kernel instead of padded (see the source's header).
+Bound: device memory, S*(n+1)*L bytes.  Design: one thread per 16
+output bytes issues the loads of up to 8 input rows before it folds
+them, so that many reads are in flight; ragged tails are masked in the
+kernel instead of padded (see the source's header).
 
 A wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches the kernel on the current stream or raises.
@@ -59,7 +60,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor) -> None:
     lib = _lib()
     x = x.contiguous()
     s, n, length = x.shape
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xor_reduce_bytes_batched(x.data_ptr(), out.data_ptr(), s, n, length, stream)
     _build.check(lib, rc, "xor_reduce_bytes_batched")

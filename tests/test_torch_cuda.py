@@ -16,7 +16,10 @@ must take that the main path rarely gives them: ragged and odd lengths,
 unaligned and non-contiguous operands, and codes wide enough that a block
 holds fewer than all output rows; for the GF(2^8) matmul also matrices of
 zeros and ones (which it skips or XORs), every RS(6,3) decode inverse,
-and every row width its 16-byte, 4-byte and byte paths take.
+and every row width its 16-byte, 4-byte and byte paths take; for the
+stream scaling the same zero and unit coefficients, tables passed in and
+tables over 48 KiB; for the XOR fold input counts on both sides of its
+8-row load group and more stripes than a grid dimension may hold.
 """
 
 import itertools
@@ -88,6 +91,32 @@ def test_xor_reduce_kernel_matches_plain(cuda, n, length):
     assert torch.equal(xr.xor_reduce_bytes(x[2]), got[2])
 
 
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 17, 64])
+@pytest.mark.parametrize("length", [15, 16, 17, 32, 33, 48, 4096 + 16, 4096 + 20])
+@pytest.mark.parametrize("offset", [0, 4, 1])
+def test_xor_reduce_kernel_load_groups(cuda, n, length, offset):
+    """n below, at and past the 8 rows whose loads go out before the first
+    XOR; lengths around one and two 16-byte columns; bases moved by 0, 4
+    and 1 bytes (the 16-byte, 4-byte and byte paths)."""
+    rng = np.random.default_rng(n * 10_000 + length * 10 + offset)
+    flat = _bytes(rng, (2 * n * length + offset,), cuda)
+    x = flat[offset:].view(2, n, length)
+    got = xr.xor_reduce_bytes_batched(x)
+    want = np.bitwise_xor.reduce(x.cpu().numpy(), axis=1)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert torch.equal(xr.xor_reduce_bytes(x[1]), got[1])
+
+
+@pytest.mark.parametrize("length", [16, 1, 48])
+def test_xor_reduce_kernel_many_short_stripes(cuda, length):
+    """S = 70,000 stripes of a short row: more than gridDim.y or z could
+    hold, and a grid-stride walk whose step crosses many stripes."""
+    rng = np.random.default_rng(length)
+    x = _bytes(rng, (70_000, 3, length), cuda)
+    got = xr.xor_reduce_bytes_batched(x)
+    assert torch.equal(got, xr.xor_reduce_bytes_batched_plain(x))
+
+
 def test_unaligned_non_contiguous_operands(cuda):
     rng = np.random.default_rng(7)
     base = _bytes(rng, (4, 7, 4099), cuda)
@@ -130,6 +159,46 @@ def test_gf_matmul_kernel_zero_and_unit_coefficients(cuda, case, length):
     data = _bytes(rng, (3, coeffs.shape[1], length), cuda)
     got = ge.gf_matmul_bytes_batched(coeffs, data)
     assert torch.equal(got, ge.gf_matmul_bytes_batched_plain(coeffs, data))
+
+
+@pytest.mark.parametrize("case", sorted(SPECIAL_COEFFS))
+@pytest.mark.parametrize("length", [1, 33, 1000, 4099, 65536])
+def test_gf_scale_kernel_zero_and_unit_coefficients(cuda, case, length):
+    coeffs = torch.from_numpy(SPECIAL_COEFFS[case]()).to(cuda)
+    rng = np.random.default_rng(length + 1)
+    data = _bytes(rng, (coeffs.shape[1], length), cuda)
+    got = ge.gf_scale_bytes(coeffs, data)
+    assert torch.equal(got, ge.gf_scale_bytes_plain(coeffs, data))
+
+
+@pytest.mark.parametrize("k,m", [(6, 3), (200, 8), (256, 7)])
+def test_gf_scale_kernel_takes_precomputed_tables(cuda, k, m):
+    """Tables passed in (aligned, and copied to 16 bytes when not), and
+    m * k tables over the 48 KiB a block holds (200 x 8: two tiles of
+    output rows)."""
+    rng = np.random.default_rng(k + m)
+    coeffs = _coeffs(rng, m, k, cuda)
+    data = _bytes(rng, (k, 1000), cuda)
+    tables = ge.field_tables(coeffs)
+    padded = torch.empty(tables.numel() + 1, dtype=torch.uint8, device=cuda)
+    unaligned = padded[1:].view(tables.shape).copy_(tables)
+    want = ge.gf_scale_bytes_plain(coeffs, data)
+    before = ge.gf_scale_bytes.launches
+    assert torch.equal(ge.gf_scale_bytes(coeffs, data, tables), want)
+    assert torch.equal(ge.gf_scale_bytes(coeffs, data, unaligned), want)
+    assert ge.gf_scale_bytes.launches == before + 2
+    with pytest.raises(ValueError):
+        ge.gf_scale_bytes(coeffs, data, tables[:, :k - 1])
+
+
+@pytest.mark.parametrize("length", [16 * 64, 16 * 64 + 4, 16 * 64 + 7])
+@pytest.mark.parametrize("offset", [0, 4, 1])
+def test_gf_scale_kernel_row_widths_and_offsets(cuda, length, offset):
+    rng = np.random.default_rng(length * 16 + offset + 1)
+    flat = _bytes(rng, (6 * length + offset,), cuda)
+    data = flat[offset:].view(6, length)
+    coeffs = torch.from_numpy(gf256.generator_matrix(6, 3)[6:].copy()).to(cuda)
+    assert torch.equal(ge.gf_scale_bytes(coeffs, data), ge.gf_scale_bytes_plain(coeffs, data))
 
 
 @pytest.mark.parametrize("length", [1003, 4096])

@@ -8,10 +8,11 @@ PTX ``prmt`` in its generic mode (3-bit byte selectors, bit 3 of a
 selector nibble replicating the selected byte's sign bit), the kernel's
 ``split`` (selectors gathered by a wrapping 32-bit multiply) and
 ``mul4_fields`` with its zero and unit coefficient branches and swapped
-byte order, and the GF(2) kernel's bit packing, AND-XOR accumulation and
-bytewise parity.  The emulations run on seeded inputs against
-``repro.kernels.ref`` and the reference ``gf_matmul_mxu`` (interpret
-mode).  All of it is integer work: tolerance 0.  Words are u32 values
+byte order (in the matmul, and in the stream scaling, which stores every
+product without the fold), and the GF(2) kernel's bit packing, AND-XOR
+accumulation and bytewise parity.  The emulations run on seeded inputs
+against ``repro.kernels.ref`` and the reference's Pallas kernels
+``gf_scale_bitsliced`` and ``gf_matmul_mxu`` (interpret mode).  All of it is integer work: tolerance 0.  Words are u32 values
 held in int64 tensors, since torch has no shifts on uint32 on the CPU.
 """
 
@@ -23,6 +24,7 @@ import torch
 
 from repro.core import gf256 as jx_gf256
 from repro.kernels import gf256_encode as jx_ge
+from repro.kernels import ops as jx_ops
 from repro.kernels import ref as jx_ref
 from repro_torch.kernels import gf256_encode as ge
 from repro_torch.kernels import ops as pt_ops
@@ -110,6 +112,27 @@ def emulate_gf_matmul(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return _bytes(swap12(acc))[..., :length]
 
 
+def emulate_gf_scale(coeffs: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """gf_scale_kernel's arithmetic: (m, k) x (k, L) -> (m, k, L), each
+    product stored as it is made: zeros for a zero coefficient, the word
+    itself for a unit one, else the lookups with bytes 1 and 2 swapped back."""
+    tables = _words(ge.field_tables(coeffs))           # (m, k, 8)
+    length = data.shape[-1]
+    x = _words(_pad(data, 16))                          # (k, W)
+    m, k = coeffs.shape
+    out = torch.zeros((m, k, x.shape[1]), dtype=torch.int64)
+    for j in range(k):
+        fields = split(x[j])
+        for t in range(m):
+            words = tables[t, j].tolist()
+            c = (words[0] >> 8) & 0xFF
+            if c == 1:
+                out[t, j] = x[j]
+            elif c != 0:
+                out[t, j] = swap12(mul4_fields(words[:4], words[4], fields))
+    return _bytes(out)[..., :length]
+
+
 def emulate_gf_mxu(bigmat: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """gf_mxu_kernel's arithmetic: (em, ek) x (ek, n) -> (em, n) int8."""
     masks = ge.row_masks(bigmat).to(torch.int64) * 0x01010101   # replicated words
@@ -165,12 +188,21 @@ def test_row_masks_pack_the_low_bits(em, ek):
     np.testing.assert_array_equal(masks.numpy(), want)
 
 
-def test_ops_cache_the_tables_and_masks_per_matrix():
+def test_ops_cache_the_tables_and_masks_per_matrix(monkeypatch):
     parity = jx_gf256.generator_matrix(6, 3)[6:]
     key = (parity.tobytes(), 3, 6, torch.device("cpu"))
     tables = pt_ops._tables_device(*key)
     assert tables is pt_ops._tables_device(*key)
     assert torch.equal(tables, ge.field_tables(torch.from_numpy(parity.copy())))
+    # the matmul and the stream scaling are handed those cached tables
+    passed = []
+    for name in ("gf_matmul_bytes_batched", "gf_scale_bytes"):
+        monkeypatch.setattr(ge, name, lambda c, d, t, name=name: passed.append((name, t)))
+    data = _rand(2, (6, 40))
+    pt_ops.gf_matmul_bytes_batched(parity, data[None], device="cpu")
+    pt_ops.gf_scale_streams(parity, data, device="cpu")
+    assert [name for name, _ in passed] == ["gf_matmul_bytes_batched", "gf_scale_bytes"]
+    assert all(t is tables for _, t in passed)
     masks = pt_ops._rs_block_masks(6, 3, "cauchy", torch.device("cpu"))
     assert torch.equal(masks, ge.row_masks(pt_ops.rs_block_bitmatrix(6, 3, "cauchy",
                                                                      torch.device("cpu"))))
@@ -248,6 +280,22 @@ def test_emulated_gf_matmul_matches_reference(case, length):
     want = np.asarray(jx_ref.gf_matmul_batched_ref(coeffs, data))
     got = emulate_gf_matmul(torch.from_numpy(coeffs.copy()), torch.from_numpy(data))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(MATMUL_CASES))
+@pytest.mark.parametrize("length", [1, 16, 36, 100, 1000])
+def test_emulated_gf_scale_matches_reference(case, length):
+    """Against the reference's stream scaling, its Pallas kernel
+    ``gf_scale_bitsliced`` in interpret mode."""
+    coeffs = MATMUL_CASES[case]
+    m, k = coeffs.shape
+    data = _rand(m * 100 + k * 10 + length + 7, (k, length))
+    want = np.asarray(jx_ops.gf_scale_streams(coeffs, data))
+    got = emulate_gf_scale(torch.from_numpy(coeffs.copy()), torch.from_numpy(data))
+    assert got.shape == (m, k, length)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ge.gf_scale_bytes_plain(torch.from_numpy(coeffs.copy()),
+                                                          torch.from_numpy(data)).numpy(), want)
 
 
 def test_decode_inverses_of_rs63_are_mostly_zeros_and_units():
