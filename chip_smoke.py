@@ -58,7 +58,15 @@ deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
    kernel's plain version and against ``blockwise_attention`` (which
    rounds elsewhere; see OTHER_ROUNDING); decode of the last position
    against the layer's last row.
-5. Prints ``{"kernels": [...]}`` (launches on each main path, error,
+5. The checkpoint path, with every launch counter set to 0 again: the
+   training state of one yi-9b GQA layer at full width (bf16 weights from
+   seeded params, two fp32 AdamW-moment stand-ins of the same shapes, an
+   int64 step: 0.38 GB) saved by ``CheckpointManager`` under RS-6-3-1024k
+   (6 MiB stripe objects, client-side encode) into a 10-node cluster on the
+   card; restored bitwise after 3 nodes holding data cells fail, and
+   refused after a fourth; then ``ops.bulk_verify`` on the card over 2^16
+   capabilities against the host MAC, with 3 tags corrupted.
+6. Prints ``{"kernels": [...]}`` (launches on each main path, error,
    times, bound) and, last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off).  Any failed check
@@ -138,6 +146,11 @@ CLUSTER_NODES = 10
 CLUSTER_OBJECTS = 16
 CLUSTER_OBJECT_BYTES = 6 << 20
 ODD_OBJECT_BYTES = 3_141_593
+CKPT_NODE_CAPACITY = 1 << 27
+CKPT_STRIPE_BYTES = K * CELL    # one RS-6-3-1024k stripe per object
+CKPT_STEP = 1000
+CAPABILITIES = 1 << 16
+CORRUPTED_TAGS = (5, 4097, 60001)
 
 
 def card_line() -> str:
@@ -893,6 +906,131 @@ def drive_attention_path(dev) -> dict:
     return errors
 
 
+def yi_layer_state(dev) -> dict:
+    """The training state of one yi-9b attention layer at full width: the
+    seeded params' weights in bf16, two fp32 stand-ins for AdamW's moments
+    of the same shapes, and the step."""
+    import torch
+
+    from repro_torch.models.attention import gqa_init
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    params = {name: {"w": p["w"].to(torch.bfloat16)} for name, p in gqa_init(
+        gen, YI["d_model"], YI["n_heads"], YI["n_kv_heads"], YI["head_dim"]).items()}
+
+    def moment():
+        return {name: 1e-3 * torch.randn(p["w"].shape, generator=gen, device=dev)
+                for name, p in params.items()}
+
+    nu = {name: x.square() for name, x in moment().items()}
+    return {"params": params, "opt": {"mu": moment(), "nu": nu},
+            "step": torch.tensor(CKPT_STEP, dtype=torch.int64, device=dev)}
+
+
+def drive_checkpoint(dev, counters) -> dict:
+    """Phase 5: save the layer state, restore it after 3 node failures,
+    refuse it after 4, and verify capabilities in bulk on the card."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy, StorageCluster
+    from repro_torch.checkpoint.manager import flatten, path_str
+    from repro_torch.core.auth import CAP_WORDS, sponge_mac
+    from repro_torch.kernels import ops
+
+    state = yi_layer_state(dev)
+    leaves = {path_str(p): x for p, x in flatten(state)}
+    nbytes = sum(x.numel() * x.element_size() for x in leaves.values())
+    cluster = StorageCluster(num_nodes=CLUSTER_NODES, node_capacity=CKPT_NODE_CAPACITY,
+                             device=dev)
+    mgr = CheckpointManager(cluster, CheckpointPolicy(k=K, m=M, stripe_bytes=CKPT_STRIPE_BYTES,
+                                                      encode="client"))
+    matmul = counters["gf_matmul_bytes_batched"]
+
+    before = matmul.launches
+    t0 = time.perf_counter()
+    with ec_wall_time({"ec_s": 0.0}) as save_ec:
+        mgr.save(CKPT_STEP, state, blocking=True)
+    save_s = time.perf_counter() - t0
+    save_launches = matmul.launches - before
+    check(save_launches > 0, "save launched no encode kernel")
+    manifest = mgr._manifests[CKPT_STEP]
+    check([leaf["path"] for leaf in manifest["leaves"]] == sorted(leaves),
+          f"manifest leaves {[leaf['path'] for leaf in manifest['leaves']]} != {sorted(leaves)}")
+    objects = sum(len(leaf["stripes"]) for leaf in manifest["leaves"])
+
+    first = cluster.meta.lookup(manifest["leaves"][0]["stripes"][0]["oid"])
+    failed = sorted({first.data_coords[i].node for i in range(M)})
+    check(len(failed) == M, f"data cells of the first object share nodes: {failed}")
+    for node in failed:
+        cluster.fail_node(node)
+    before = matmul.launches
+    t0 = time.perf_counter()
+    with ec_wall_time({"ec_s": 0.0}) as restore_ec:
+        got = mgr.restore(treedef=state)
+    restore_s = time.perf_counter() - t0
+    restore_launches = matmul.launches - before
+    check(restore_launches > 0, "restore launched no decode kernel")
+    restored = {path_str(p): x for p, x in flatten(got)}
+    check(sorted(restored) == sorted(leaves), f"restored leaves {sorted(restored)}")
+    for path, want in leaves.items():
+        x = restored[path]
+        check(x.device.type == "cpu" and x.dtype == want.dtype and x.shape == want.shape
+              and torch.equal(x, want.cpu()), f"leaf {path} not restored bitwise")
+    degraded = sum(any(cluster.meta.lookup(s["oid"]).data_coords[i].node in failed
+                       for i in range(K))
+                   for leaf in manifest["leaves"] for s in leaf["stripes"])
+
+    fourth = first.data_coords[M].node
+    cluster.fail_node(fourth)
+    try:
+        mgr.restore(treedef=state)
+        refused = None
+    except (IOError, ValueError) as exc:      # the expected refusal, and only it
+        refused = f"{type(exc).__name__}: {str(exc)[:120]}"
+    check(refused is not None, f"restore after {M + 1} failed nodes did not raise")
+
+    rng = np.random.default_rng(SEED + 5)
+    key = rng.integers(0, 1 << 32, 4, dtype=np.uint32)
+    words = rng.integers(0, 1 << 32, (CAPABILITIES, CAP_WORDS), dtype=np.uint32)
+    tags = sponge_mac(words, key)
+    words_d, tags_d, key_d = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                              for a in (words, tags, key))
+    got_tags = ops.bulk_verify_tags(words_d, key_d, device=dev)
+    check(torch.equal(got_tags.to(torch.int64).cpu(), torch.from_numpy(tags.astype(np.int64))),
+          "bulk_verify_tags differs from the host MAC")
+    check(bool(ops.bulk_verify(words_d, tags_d, key_d, device=dev).all()),
+          "bulk_verify rejected a valid capability")
+    bad = tags.copy()
+    for i, row in enumerate(CORRUPTED_TAGS):
+        bad[row, i % 2] ^= np.uint32(1 << (7 * i))
+    verdict = ops.bulk_verify(words_d, torch.from_numpy(bad.astype(np.int64)).to(dev), key_d,
+                              device=dev).cpu()
+    rejected = sorted(int(i) for i in torch.nonzero(~verdict).flatten())
+    check(rejected == sorted(CORRUPTED_TAGS), f"bulk_verify rejected {rejected}, "
+          f"not exactly the corrupted {sorted(CORRUPTED_TAGS)}")
+    verify_ms = median_ms(lambda: ops.bulk_verify(words_d, tags_d, key_d, device=dev), 5)
+
+    res = {"bytes": nbytes, "leaves": len(leaves), "objects": objects,
+           "failed_nodes": failed, "degraded_objects": degraded,
+           "save_s": save_s, "save_ec_s": save_ec["ec_s"], "save_launches": save_launches,
+           "restore_s": restore_s, "restore_ec_s": restore_ec["ec_s"],
+           "restore_launches": restore_launches, "fourth_failed_node": fourth,
+           "refused": refused, "capabilities": CAPABILITIES,
+           "rejected": rejected, "bulk_verify_ms": verify_ms}
+    print(f"  checkpoint: {len(leaves)} leaves ({nbytes} B, {objects} stripe objects) saved in "
+          f"{save_s:.3f} s ({save_ec['ec_s']:.3f} s in EC, {save_launches} encode launches); "
+          f"nodes {failed} failed, {degraded} degraded objects; restored bitwise in "
+          f"{restore_s:.3f} s ({restore_ec['ec_s']:.3f} s in EC, {restore_launches} launches); "
+          f"node {fourth} failed too: refused ({refused})", flush=True)
+    print(f"  checkpoint save_s {save_s:.6f} restore_s {restore_s:.6f} EC share "
+          f"{save_ec['ec_s'] / save_s:.4f} / {restore_ec['ec_s'] / restore_s:.4f}", flush=True)
+    print(f"  bulk_verify: {CAPABILITIES} capabilities equal to the host MAC, rows "
+          f"{rejected} rejected after their tags were corrupted; {verify_ms:.3f} ms a batch",
+          flush=True)
+    return res
+
+
 def count_launches(rows: list[dict], counters: dict, path: str) -> None:
     """Set each row's launches from its counter and fail on a kernel the
     path did not launch."""
@@ -950,9 +1088,22 @@ def main() -> int:
     attention = drive_attention_path(dev)
     torch.cuda.synchronize()
     count_launches(attention_rows, counters, "attention")
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"cluster": cluster, "attention": attention, "flash_build": flash_build,
-                      "gf_build": gf_build, "copy": copy}))
+    print("phase 5: checkpoint path", flush=True)
+    for fn in counters.values():
+        fn.launches = 0
+    checkpoint = drive_checkpoint(dev, counters)
+    torch.cuda.synchronize()
+    matmul_row = dataplane_rows[0]
+    matmul_row["checkpoint_launches"] = counters[matmul_row["name"]].launches
+    check(matmul_row["checkpoint_launches"] > 0,
+          f"{matmul_row['name']} was not launched on the checkpoint main path")
+    print(f"  launches on the checkpoint main path: "
+          f"{ {matmul_row['name']: matmul_row['checkpoint_launches']} }", flush=True)
+
+    print(json.dumps({"cluster": cluster, "attention": attention, "checkpoint": checkpoint,
+                      "flash_build": flash_build, "gf_build": gf_build, "copy": copy}))
     print(card)
     print(json.dumps({"kernels": dataplane_rows + attention_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,7 @@
-"""Checkpoint storage: the storage cluster and its batched client-side EC.
+"""Checkpoint plane: the storage cluster, its batched client-side EC, and
+the manager that writes training state through it."""
 
-``CheckpointManager`` (pytree flattening) is not ported yet.
-"""
-
+from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
 from repro_torch.checkpoint.storage import ObjectLayout, StorageCluster
 
-__all__ = ["ObjectLayout", "StorageCluster"]
+__all__ = ["CheckpointManager", "CheckpointPolicy", "ObjectLayout", "StorageCluster"]

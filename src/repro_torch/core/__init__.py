@@ -1,14 +1,16 @@
 """The paper's NIC-offloadable DFS policies (see ``repro.core``).
 
   * protocol        -> :mod:`repro_torch.core.auth`        (capability validation)
-  * data movement   -> :mod:`repro_torch.core.replication` (broadcast schedule planner)
+  * data movement   -> :mod:`repro_torch.core.replication` (ring/PBT pipelined bcast)
   * data processing -> :mod:`repro_torch.core.erasure`     (streaming RS(k, m))
 
 :mod:`repro_torch.core.handlers` composes them into the sPIN HH/PH/CH
 execution model; :mod:`repro_torch.core.packets` defines the wire format;
-:mod:`repro_torch.core.state` the bounded on-NIC state.  The device
-broadcasts of ``repro.core.replication`` are not ported yet, so only the
-host-side planner is exported.
+:mod:`repro_torch.core.state` the bounded on-NIC state.  Timing/evaluation
+lives in :mod:`repro_torch.sim`; the production consumer is
+:mod:`repro_torch.checkpoint`.  The broadcasts run on ``torch.distributed``
+point-to-point, the erasure code on the CUDA kernels of
+:mod:`repro_torch.kernels`.
 """
 
 from repro_torch.core.auth import Capability, CapabilityAuthority, Rights, sponge_mac
@@ -32,7 +34,14 @@ from repro_torch.core.packets import (
     WriteRequestHeader,
     packetize_write,
 )
-from repro_torch.core.replication import children_of, depth_of, tree_depth
+from repro_torch.core.replication import (
+    BroadcastPlan,
+    children_of,
+    optimal_chunk_count,
+    pbt_broadcast,
+    replicate,
+    ring_broadcast,
+)
 from repro_torch.core.state import RequestTable, littles_law_concurrent_writes
 
 __all__ = [
@@ -59,9 +68,12 @@ __all__ = [
     "Resiliency",
     "WriteRequestHeader",
     "packetize_write",
+    "BroadcastPlan",
     "children_of",
-    "depth_of",
-    "tree_depth",
+    "optimal_chunk_count",
+    "pbt_broadcast",
+    "replicate",
+    "ring_broadcast",
     "RequestTable",
     "littles_law_concurrent_writes",
 ]

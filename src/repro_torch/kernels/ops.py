@@ -2,12 +2,15 @@
 
 Same surface as the reference: GF(2^8) matmul / RS encode on byte
 streams, single and stripe-batched, the bit-matrix ("MXU") RS encode, the
-TriEC stream scaling, the batched XOR aggregation, and the flash
-attention dispatch.  Each op takes an explicit ``device``: inputs
-(numpy arrays or tensors) move there and results stay there.  The default
-is ``"cuda"``, and asking for it without a GPU raises; ``device="cpu"``
-runs each kernel's plain PyTorch version.  ``backend="ref"`` routes to the
-LUT oracles of :mod:`repro_torch.kernels.ref` instead of the kernels.
+TriEC stream scaling, the batched XOR aggregation, the bulk capability
+verifier, and the flash attention dispatch.  Each op takes an explicit
+``device``: inputs (numpy arrays or tensors) move there and results stay
+there.  The default is ``"cuda"``, and asking for it without a GPU raises;
+``device="cpu"`` runs each kernel's plain PyTorch version.
+``backend="ref"`` routes to the LUT oracles of
+:mod:`repro_torch.kernels.ref` instead of the kernels.  The verifier has
+no kernel of its own, as the reference's is plain ``jnp``: it is a batched
+torch ARX on the device.
 
 The kernels read and write bytes and mask ragged rows themselves, so
 unlike the reference there is no padding to a tile, no bit-plane packing
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import gf256
+from repro_torch.core.auth import MAC_ROUNDS
 from repro_torch.kernels import flash_attention as flash_attention_kernel
 from repro_torch.kernels import gf256_encode, ref, xor_reduce
 
@@ -264,6 +268,80 @@ def xor_reduce_bytes_batched(
     if backend != "kernel":
         raise ValueError(f"unknown backend {backend!r}")
     return xor_reduce.xor_reduce_bytes_batched(x)
+
+
+# ---------------------------------------------------------------------------
+# Bulk capability verification (the batched header-handler check).
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+# the sponge's initial state, XORed with the key (core/auth.py sponge_mac)
+_SPONGE_IV = (0x736F6D65, 0x646F7261, 0x6C796765, 0x74656462)
+
+
+def _words_on(x, device: torch.device) -> torch.Tensor:
+    """uint32 words (numpy array or tensor) as int64 values on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.asarray(x, dtype=np.uint32).astype(np.int64)).to(device)
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK32
+
+
+def _sponge_round(v0, v1, v2, v3):
+    v0 = (v0 + v1) & _MASK32
+    v1 = _rotl32(v1, 5) ^ v0
+    v0 = _rotl32(v0, 16)
+    v2 = (v2 + v3) & _MASK32
+    v3 = _rotl32(v3, 8) ^ v2
+    v0 = (v0 + v3) & _MASK32
+    v3 = _rotl32(v3, 13) ^ v0
+    v2 = (v2 + v1) & _MASK32
+    v1 = _rotl32(v1, 7) ^ v2
+    v2 = _rotl32(v2, 16)
+    return v0, v1, v2, v3
+
+
+def _sponge_mac(words: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """``core.auth.sponge_mac`` over (..., W) words as int64 values in
+    [0, 2^32): torch has no shifts or adds on uint32, so every add and
+    rotation is masked to 32 bits.  Returns (..., 2) int64."""
+    v0, v1, v2, v3 = ((key[i] ^ iv).expand(words.shape[:-1])
+                      for i, iv in enumerate(_SPONGE_IV))
+    for i in range(words.shape[-1]):
+        w = words[..., i]
+        v3 = v3 ^ w
+        for _ in range(2):
+            v0, v1, v2, v3 = _sponge_round(v0, v1, v2, v3)
+        v0 = v0 ^ w
+    v2 = v2 ^ 0xFF
+    for _ in range(MAC_ROUNDS):
+        v0, v1, v2, v3 = _sponge_round(v0, v1, v2, v3)
+    return torch.stack([v0 ^ v1, v2 ^ v3], dim=-1)
+
+
+def bulk_verify_tags(
+    caps_words,
+    key,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> torch.Tensor:
+    """(N, CAP_WORDS) uint32 + (4,) key -> (N, 2) uint32 tags, on ``device``."""
+    dev = resolve_device(device)
+    return _sponge_mac(_words_on(caps_words, dev), _words_on(key, dev)).to(torch.uint32)
+
+
+def bulk_verify(
+    caps_words,
+    tags,
+    key,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> torch.Tensor:
+    """Vector verdict for a batch of capabilities: (N,) bool MAC-match."""
+    dev = resolve_device(device)
+    want = _sponge_mac(_words_on(caps_words, dev), _words_on(key, dev))
+    return (want == _words_on(tags, dev)).all(dim=-1)
 
 
 # ---------------------------------------------------------------------------

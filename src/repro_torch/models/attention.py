@@ -240,6 +240,13 @@ def _position(cur_len, device) -> tuple[int, torch.Tensor]:
     return t, torch.full((1, 1), t, dtype=torch.int64, device=device)
 
 
+def _cache_slot(t: int, smax: int) -> int:
+    """The cache row a token at position ``t`` is written to: ``t`` clamped
+    into ``[0, smax - 1]``, as ``jax.lax.dynamic_update_slice`` clamps its
+    start, so a full cache overwrites its last row."""
+    return min(max(t, 0), smax - 1)
+
+
 def gqa_decode(
     p: Params,
     x: torch.Tensor,                    # (B, 1, d)
@@ -261,8 +268,9 @@ def gqa_decode(
     if rope_theta > 0:
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-    cache_k[:, t:t + 1] = k.to(cache_k.dtype)
-    cache_v[:, t:t + 1] = v.to(cache_v.dtype)
+    slot = _cache_slot(t, smax)
+    cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
+    cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
     # grouped GQA: never materialize the head-repeated cache
     rep = n_heads // n_kv_heads
     qg = _scaled(q, 1.0 / math.sqrt(head_dim)).reshape(b, 1, n_kv_heads, rep, head_dim)
@@ -361,8 +369,9 @@ def mla_decode(
     dkv = dense_apply(p["w_dkv"], x)
     c_new, kr_new = dkv[..., :kv_lora], dkv[..., kv_lora:]
     kr_new = apply_rope(kr_new[..., None, :], pos, rope_theta)[..., 0, :]
-    cache_c[:, t:t + 1] = c_new.to(cache_c.dtype)
-    cache_kr[:, t:t + 1] = kr_new.to(cache_kr.dtype)
+    slot = _cache_slot(t, smax)
+    cache_c[:, slot:slot + 1] = c_new.to(cache_c.dtype)
+    cache_kr[:, slot:slot + 1] = kr_new.to(cache_kr.dtype)
     # absorb W_uk into the query: q_c[h] = q_nope[h] @ W_uk[h]^T  (B,1,H,kv_lora)
     w_uk = p["w_uk"]["w"].reshape(kv_lora, n_heads, qk_nope)
     q_c = _bf16_einsum("bqhn,lhn->bqhl", q_nope, w_uk)

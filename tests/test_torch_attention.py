@@ -360,6 +360,40 @@ def test_mla_decode_matches_reference_step_by_step():
         _close(ckr_t, ckr_j, ONE_ROUNDING)
 
 
+SMAX = 8
+
+
+@pytest.mark.parametrize("cur_len", [SMAX - 1, SMAX, SMAX + 3])
+def test_gqa_decode_at_a_full_cache_matches_reference(cur_len):
+    """From ``cur_len >= Smax`` on, the reference's ``dynamic_update_slice``
+    clamps the write to the cache's last row; the step still rotates at
+    ``cur_len`` and attends to every row."""
+    jp = _gqa_params()
+    x_j, x_t = _pair(_normal(26, (2, 1, D_MODEL)), "bfloat16")
+    ck_j, ck_t = _pair(_normal(27, (2, SMAX, 2, 16)), "bfloat16")
+    cv_j, cv_t = _pair(_normal(28, (2, SMAX, 2, 16)), "bfloat16")
+    o_j, ck_j, cv_j = _jit(jx_attn.gqa_decode, **GQA)(jp, x_j, ck_j, cv_j,
+                                                      jnp.asarray(cur_len, jnp.int32))
+    o_t, ck_t, cv_t = pt_attn.gqa_decode(_carry(jp), x_t, ck_t, cv_t, cur_len, **GQA)
+    _close(o_t, o_j, BF16_LAYER)
+    _close(ck_t, ck_j, ONE_ROUNDING)
+    _close(cv_t, cv_j, ONE_ROUNDING)
+
+
+@pytest.mark.parametrize("cur_len", [SMAX - 1, SMAX, SMAX + 3])
+def test_mla_decode_at_a_full_cache_matches_reference(cur_len):
+    jp = _mla_params()
+    x_j, x_t = _pair(_normal(29, (2, 1, D_MODEL)), "bfloat16")
+    cc_j, cc_t = _pair(_normal(30, (2, SMAX, 32)), "bfloat16")
+    ckr_j, ckr_t = _pair(_normal(31, (2, SMAX, 8)), "bfloat16")
+    o_j, cc_j, ckr_j = _jit(jx_attn.mla_decode, **MLA)(jp, x_j, cc_j, ckr_j,
+                                                       jnp.asarray(cur_len, jnp.int32))
+    o_t, cc_t, ckr_t = pt_attn.mla_decode(_carry(jp), x_t, cc_t, ckr_t, cur_len, **MLA)
+    _close(o_t, o_j, BF16_LAYER)
+    _close(cc_t, cc_j, ONE_ROUNDING)
+    _close(ckr_t, ckr_j, ONE_ROUNDING)
+
+
 def test_gqa_decode_consistent_with_prefill():
     """Greedy decode over a cache reproduces blockwise attention at every
     position, as tests/test_attention.py holds the reference."""

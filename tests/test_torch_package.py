@@ -3,7 +3,9 @@
 (a) no module of the port, and not ``chip_smoke.py``, imports ``jax`` or
     ``repro``; (b) importing the port leaves both out of ``sys.modules``;
 (c) every module the port copies verbatim still equals its ``repro``
-    source once ``repro.`` reads ``repro_torch.``, so drift shows;
+    source once ``repro.`` reads ``repro_torch.``, so drift shows, and the
+    reference's anchor tests of the simulator and the policy presets pass
+    on the copies;
 (d) without a GPU, the entry points (the data plane's, ``ops.rs_encode_mxu``,
     ``ops.flash_attention`` and the layers' tensor makers ``rope_freqs``,
     ``rmsnorm_init``, ``layernorm_init``) raise unless asked for the CPU, and
@@ -11,6 +13,7 @@
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -37,6 +40,36 @@ VERBATIM = [
     "policy/spec.py",
     "policy/functional.py",
     "namenode/placement.py",
+    "sim/__init__.py",
+    "sim/engine.py",
+    "sim/network.py",
+    "sim/pspin.py",
+    "sim/protocols.py",
+    "sim/workload.py",
+    "sim/legacy.py",
+    "policy/timed.py",
+    "policy/flight.py",
+    "control/__init__.py",
+    "control/autoscaler.py",
+    "control/governor.py",
+    "control/sweep.py",
+    "control/telemetry.py",
+    "trace/__init__.py",
+    "trace/attr.py",
+    "trace/counters.py",
+    "trace/perfetto.py",
+    "trace/tracer.py",
+    "verify/__init__.py",
+    "verify/linearize.py",
+    "namenode/namespace.py",
+    "namenode/namenode.py",
+    "namenode/replicator.py",
+    "membership/heartbeat.py",
+    "runtime/straggler.py",
+    "bench.py",
+    "policy/__init__.py",
+    "membership/__init__.py",
+    "namenode/__init__.py",
 ]
 
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -77,6 +110,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.checkpoint.storage, repro_torch.policy\n"
         "import repro_torch.membership, repro_torch.namenode\n"
         "import repro_torch.models, repro_torch.models.attention\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.manager\n"
+        "import repro_torch.parallel, repro_torch.parallel.collectives\n"
+        "import repro_torch.sim, repro_torch.sim.legacy, repro_torch.policy.timed\n"
+        "import repro_torch.policy.flight, repro_torch.control, repro_torch.trace\n"
+        "import repro_torch.verify, repro_torch.runtime.straggler, repro_torch.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -151,6 +189,20 @@ def test_entry_points_without_gpu_raise_unless_asked_for_cpu(no_gpu, plain_forbi
             make(64)
 
 
+def test_bulk_verifier_without_gpu_raises_unless_asked_for_cpu(no_gpu):
+    from repro_torch.core.auth import CAP_WORDS
+    from repro_torch.kernels import ops
+
+    words = np.zeros((2, CAP_WORDS), np.uint32)
+    key = np.arange(4, dtype=np.uint32)
+    tags = np.zeros((2, 2), np.uint32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.bulk_verify_tags(words, key)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.bulk_verify(words, tags, key)
+    assert ops.bulk_verify_tags(words, key, device="cpu").shape == (2, 2)
+
+
 def test_numpy_backend_stays_selectable_without_gpu(no_gpu):
     from repro_torch.core.erasure import RSCode
 
@@ -181,3 +233,59 @@ def test_cpu_path_never_builds_a_kernel(monkeypatch):
            for i in range(3)]
     assert ops.flash_attention(*qkv, device="cpu").shape == (1, 8, 2, 64)
     assert ops.flash_attention(*qkv, backend="kernel", device="cpu").shape == (1, 8, 2, 64)
+
+
+# -- the reference's anchor tests, on the copies ------------------------------------------
+
+ANCHORS = json.loads((ROOT / "tests" / "data" / "policy_anchors.json").read_text())
+KiB = 1024
+
+
+@pytest.mark.parametrize("name", sorted(ANCHORS["latency_ns"]))
+def test_copied_preset_latency_matches_anchor(name):
+    """tests/test_policy.py's anchor guard, on ``repro_torch.sim``."""
+    from repro_torch.policy.spec import EC_GEOMETRY_PRESETS
+    from repro_torch.sim import protocols as P
+
+    cfgd = ANCHORS["config"]
+    k = cfgd["ec_k"] if name in EC_GEOMETRY_PRESETS else cfgd["k"]
+    for size_s, want in ANCHORS["latency_ns"][name].items():
+        got = P.run_single_shot(name, int(size_s), k=k, m=2).latency_ns
+        assert got == pytest.approx(want, rel=1e-12), (name, size_s)
+
+
+def _fig6_spin_overhead_small_and_large():
+    """tests/test_sim.py: sPIN <= ~30% over raw for small writes; converges
+    for large."""
+    from repro_torch.sim import protocols as P
+
+    r1 = P.run_raw_write(1 * KiB).latency_ns
+    s1 = P.run_spin_auth_write(1 * KiB).latency_ns
+    assert 1.0 < s1 / r1 < 1.35, s1 / r1
+    r512 = P.run_raw_write(512 * KiB).latency_ns
+    s512 = P.run_spin_auth_write(512 * KiB).latency_ns
+    assert s512 / r512 < 1.05
+
+
+def _fig15_ec_latency_and_bandwidth():
+    """tests/test_sim.py: TriEC on sPIN against INEC, latency and bandwidth."""
+    from repro_torch.sim import protocols as P
+    from repro_torch.sim.network import NetConfig
+
+    cfg = NetConfig(bandwidth_gbps=100.0)
+    spin = P.run_spin_triec(512 * KiB, 3, 2, cfg=cfg).latency_ns
+    inec = P.run_inec_triec(512 * KiB, 3, 2, cfg=cfg).latency_ns
+    assert inec / spin > 1.8
+    bw_s = P.run_spin_triec(512 * KiB, 6, 3, cfg=cfg, num_blocks=12).extra["bandwidth_GBps"]
+    bw_i = P.run_inec_triec(512 * KiB, 6, 3, cfg=cfg, num_blocks=12).extra["bandwidth_GBps"]
+    assert 2.0 < bw_s / bw_i < 5.5
+    bw_s1 = P.run_spin_triec(1 * KiB, 6, 3, cfg=cfg, num_blocks=96).extra["bandwidth_GBps"]
+    bw_i1 = P.run_inec_triec(1 * KiB, 6, 3, cfg=cfg, num_blocks=24).extra["bandwidth_GBps"]
+    assert bw_s1 / bw_i1 > 15
+
+
+@pytest.mark.parametrize("check", [_fig6_spin_overhead_small_and_large,
+                                   _fig15_ec_latency_and_bandwidth],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_copied_simulator_holds_the_paper_figures(check):
+    check()
