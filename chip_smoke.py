@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch/CUDA port: the erasure-coded data plane and
-the attention layer.
+"""GPU smoke run of the PyTorch/CUDA port: the erasure-coded data plane, the
+attention layer, the checkpoint plane and the model serving path.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -11,8 +11,9 @@ It needs ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 The storage geometry is Apache Hadoop's default HDFS erasure-coding policy
 RS-6-3-1024k (6 data + 3 parity cells of 1 MiB; ``hdfs ec -listPolicies``);
 the attention widths are those of yi-9b (arXiv:2403.04652),
-deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
-``src/repro/configs/registry.py``.
+deepseek-v2-lite (arXiv:2405.04434), whisper-base (arXiv:2212.04356) and
+zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
+(``src/repro_torch/configs/registry.py``, a copy of the reference's).
 
 1. Prints the card's name and power limit, builds the four kernel sources
    (one ``nvcc`` per source, all at once) and prints each build time; for
@@ -66,8 +67,31 @@ deepseek-v2-lite (arXiv:2405.04434) and whisper-base (arXiv:2212.04356) in
    card; restored bitwise after 3 nodes holding data cells fail, and
    refused after a fourth; then ``ops.bulk_verify`` on the card over 2^16
    capabilities against the host MAC, with 3 tags corrupted.
-6. Prints ``{"kernels": [...]}`` (launches on each main path, error,
-   times, bound) and, last, ``{"ok": true, "device": {...}}``.
+6. The model serving path, with every launch counter set to 0 again:
+   yi-9b at its published size (48 layers, 8.83 B seeded fp32 params) and
+   every other registered architecture at its published widths with its
+   depth cut to its smallest repeating unit (``DEPTH_CUTS``), one after the
+   other.  Each runs a prefill through ``forward`` (yi-9b: B=1, S=4096; the
+   others S=512, llava with its 2880 patch tokens, whisper over 1500
+   frames and 448 tokens) plus the last row's bf16 logits; it must launch
+   the flash kernel once per self-attention layer, and its hidden states
+   and logits are held against the same prefill with ``blockwise_attention``
+   in the kernel's place (``WHOLE_MODEL``; the second prefill's MoE layers
+   route as the first's did, ``pinned_routing``).  yi-9b's prefill with
+   layer 0's causal mask dropped must fail that tolerance.  An MoE layer's
+   capacity dispatch is held against its plain version (a dense combine of
+   the choices capacity keeps).  Decode steps are held against forward's
+   rows (yi-9b: a 64-token prompt, B=4; the others 8 steps; whisper with
+   its cross-attention cache filled from the encoder); a Mamba2 or xLSTM
+   model's under ``RECURRENT_MODEL``, and again with every product in fp32
+   under ``FP32_MODEL``, which a fault in decode's wiring fails.  yi-9b
+   then serves 12 requests through ``ServeLoop`` over 4 slots, a quarter
+   with capabilities lacking READ: every good request gets 8 tokens, every
+   bad one is rejected before it takes a slot.  Prints the prefill ms, the ms
+   a decode step, the steps and the tokens per second.
+7. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
+   main path, error, times, bound) and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Float32 matrix products run in full fp32 (TF32 off).  Any failed check
 raises, so the script exits non-zero without the last line.  It exits
@@ -78,7 +102,7 @@ from __future__ import annotations
 
 import contextlib
 import json
-import math
+import operator
 import re
 import statistics
 import subprocess
@@ -133,6 +157,7 @@ FLASH_CASES = [
     ("yi-9b prefill_32k", 1, 32768, 32, 4, 128, 128, "bfloat16", True, 3, 3),
     ("deepseek-v2-lite MLA", 2, 4096, 16, 16, 192, 128, "bfloat16", True, 20, 3),
     ("whisper-base encoder", 8, 1500, 8, 8, 64, 64, "bfloat16", False, 20, 3),
+    ("zamba2-2.7b shared block", 2, 4096, 32, 32, 160, 160, "bfloat16", True, 20, 3),
     ("yi-9b fp32", 1, 4096, 32, 4, 128, 128, "float32", True, 10, 3),
 ]
 RAGGED = (1, 31, 33, 100, 1000, 4108, 1_000_003)   # 4108 % 16 == 12
@@ -197,6 +222,19 @@ def median_ms(fn, runs: int, per_event: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_event)
     return statistics.median(times)
+
+
+def event_ms(fn):
+    """``fn()`` and the ms between two CUDA events around it."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def measure(name, source, replaces, kernel, plain, args, nbytes, shape, extra_check=None):
@@ -294,12 +332,12 @@ def inspect_flash_build() -> dict:
     spills for each tensor-core instantiation, and the HGMMA (wgmma)
     instructions in each one's SASS.  Fails if a tensor-core instantiation
     has none: its products would not run on the tensor cores."""
-    from repro_torch.kernels.flash_attention import SUPPORTED_D, SUPPORTED_DV
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     usage = ptxas_usage("flash_attention")
     hgmma = {name: c["HGMMA"] for name, c in sass_counts("flash_attention", ("HGMMA",)).items()}
     tc = {name: n for name, n in hgmma.items() if "flash_fwd_tc" in name}
-    pairs = len(SUPPORTED_D) * len(SUPPORTED_DV)
+    pairs = len(HEAD_DIMS)
     check(len(tc) == pairs, f"expected {pairs} tensor-core instantiations in the flash "
           f"library, found {sorted(tc)}")
     check(all(n > 0 for n in tc.values()), f"a tensor-core flash body has no HGMMA: {tc}")
@@ -308,8 +346,10 @@ def inspect_flash_build() -> dict:
           f"({sum(tc.values())} in {len(tc)}), in the fp32 SIMT body {sum(simt.values())}",
           flush=True)
     for name, lines in usage.items():
-        if "flash_fwd_tc" in name:
-            print(f"    ptxas {name[-60:]}: {'; '.join(lines)}", flush=True)
+        dims = re.search(r"flash_fwd_tcILi(\d+)ELi(\d+)E", name)
+        if dims:
+            print(f"    flash_fwd_tc<{dims.group(1)}, {dims.group(2)}>: HGMMA "
+                  f"{hgmma.get(name, 'not found')}; ptxas {'; '.join(lines)}", flush=True)
     return {"hgmma": tc, "hgmma_simt": simt,
             "ptxas": {name: lines for name, lines in usage.items() if "flash" in name}}
 
@@ -847,7 +887,8 @@ def drive_attention_path(dev) -> dict:
     d_model, h, hkv, hd = YI["d_model"], YI["n_heads"], YI["n_kv_heads"], YI["head_dim"]
     p = gqa_init(gen, d_model, h, hkv, hd)
     x = torch.randn((b, s, d_model), generator=gen, device=dev).to(bf16)
-    out = gqa_apply(p, x, h, hkv, hd)
+    with attention_entry(blockwise_entry(512)):     # the layer as it rounds off the card
+        out = gqa_apply(p, x, h, hkv, hd)
     pos = torch.arange(s, device=dev)[None, :]
     q = apply_rope(dense_apply(p["wq"], x).reshape(b, s, h, hd), pos)
     k = apply_rope(dense_apply(p["wk"], x).reshape(b, s, hkv, hd), pos)
@@ -874,7 +915,8 @@ def drive_attention_path(dev) -> dict:
     nope, rope, vh = DSV2["qk_nope"], DSV2["qk_rope"], DSV2["v_head"]
     p = mla_init(gen, d_model, h, lora, nope, rope, vh)
     x = torch.randn((b, s, d_model), generator=gen, device=dev).to(bf16)
-    out = mla_apply(p, x, h, lora, nope, rope, vh)
+    with attention_entry(blockwise_entry(512)):
+        out = mla_apply(p, x, h, lora, nope, rope, vh)
     q = dense_apply(p["wq"], x).reshape(b, s, h, nope + rope)
     q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], pos)], dim=-1)
     dkv = dense_apply(p["w_dkv"], x)
@@ -1031,6 +1073,477 @@ def drive_checkpoint(dev, counters) -> dict:
     return res
 
 
+# -- phase 6: the model serving path ------------------------------------------------------
+
+#: the main model, at its published size (arXiv:2403.04652: 48 layers, d_model
+#: 4096, H=32, Hkv=4, D=128, d_ff 11008, vocab 64000), seeded fp32 master weights
+MAIN_ARCH = "yi-9b"
+#: every other registered architecture at its published widths, its depth cut
+#: to its smallest repeating unit (a layer count; None keeps the whole model)
+DEPTH_CUTS = {
+    "deepseek-v2-lite-16b": 2,   # the dense first layer and one MoE layer
+    "dbrx-132b": 1,              # 12.7 GB of expert weights
+    "zamba2-2.7b": 6,            # one group: 6 Mamba2 layers and the shared block
+    "llava-next-mistral-7b": 1,
+    "minitron-8b": 1,
+    "qwen1.5-4b": 1,
+    "starcoder2-7b": 1,
+    "xlstm-125m": None,
+    "whisper-base": None,
+}
+MODEL_SEED = 7
+PREFILL_BATCH, PREFILL_SEQ = 1, 4096        # yi-9b's prefill
+PREFILL_RUNS = 3                            # timed prefills after the checked one
+DECODE_BATCH, DECODE_PROMPT, DECODE_MAX_LEN = 4, 64, 128
+CUT_SEQ, CUT_DECODE_STEPS = 512, 8          # the cut models' prefill and decode
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448  # 30 s of audio; the decoder's context
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_MAX_TOKENS, SERVE_MAX_LEN = 4, 12, 8, 64
+SERVE_REJECT_RATE = 0.25
+# A whole model's prefill with the flash kernel against the same prefill with
+# blockwise_attention in the kernel's place (hidden states and last-row
+# logits), and decode's logits against forward's rows: the two routes round
+# at other places in every attention layer (see OTHER_ROUNDING), and the
+# differences pass through the stack.  Measured on an H100 (700 W) at yi-9b's 48
+# layers: 0.19 of a row's RMS and 0.022 relative RMS error (prefill), 0.15
+# and 0.028 (decode); a causal mask dropped in layer 0 alone: 6.5 and 1.39.
+WHOLE_MODEL = {"rtol": 2 ** -7, "row_atol": 0.3, "atol": 0.0, "rel_rms": 5e-2}
+# A recurrent model's (Mamba2, xLSTM) decode against its forward, both in
+# bf16: on random weights their exponential gates and decays turn one-ulp
+# differences into large ones, in the reference as in the port
+# (``tools/decode_witness.py``, seeds 0-4: the port on an H100 at 700 W
+# reads up to 0.34 relative RMS error and about 2.0 of a row's RMS for
+# xlstm-125m, 0.095 and 0.4 for zamba2's group; the reference's own decode
+# against its forward, on the CPU, 0.28 and 1.9, 0.060 and 0.5).  Limits
+# about twice the worst reading; a fault in decode's wiring shows in
+# FP32_MODEL.
+RECURRENT_MODEL = {
+    "xlstm": {"rtol": 2 ** -7, "row_atol": 4.0, "atol": 0.0, "rel_rms": 0.7},
+    "hybrid": {"rtol": 2 ** -7, "row_atol": 1.0, "atol": 0.0, "rel_rms": 0.2},
+}
+# The same decode and forward with every product in fp32 (``fp32_compute``):
+# the two compute one function, so only fp32 rounding, amplified as above,
+# parts them (the same readings: up to 3.0e-4 relative RMS error and 2.1e-3
+# of a row's RMS, against 1e-3 and 1e-2 here).
+FP32_MODEL = {"rtol": 0.0, "row_atol": 1e-2, "atol": 0.0, "rel_rms": 1e-3}
+
+
+def model_configs() -> dict:
+    """Phase 6's models: the main one whole, the rest cut (``DEPTH_CUTS``)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    out = {MAIN_ARCH: ARCHS[MAIN_ARCH].model}
+    for name, layers in DEPTH_CUTS.items():
+        cfg = ARCHS[name].model
+        out[name] = cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+    return out
+
+
+def self_attention_layers(cfg) -> int:
+    """Self-attention layers of one forward, each a kernel launch on the card."""
+    if cfg.family in ("dense", "moe"):
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return cfg.enc_layers + cfg.n_layers
+    return 0
+
+
+def model_batch(cfg, dev, rng, b: int, s: int) -> dict:
+    """Seeded prefill inputs: tokens, and a frontend's stub embeddings."""
+    import torch
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = normal(b, cfg.frontend_tokens, cfg.d_model)
+    if cfg.family == "encdec":
+        batch["frames"] = normal(b, WHISPER_FRAMES, cfg.d_model)
+    return batch
+
+
+def unembed(params, hidden):
+    """Logits of hidden states, a bf16 product as the reference's prefill step
+    (``repro/launch/steps.py``) and ``decode_step`` compute them."""
+    from repro_torch.models.layers import dense_apply
+
+    return dense_apply(params["unembed"], hidden).float()
+
+
+@contextlib.contextmanager
+def fp32_compute():
+    """The model stack with every product in fp32: the defaults through which
+    it picks its compute dtype (``dense_apply``, ``embed_apply``) and its
+    cache dtype (``init_cache``) read float32 inside."""
+    import torch
+
+    from repro_torch.models import layers, model
+
+    fns = (layers.dense_apply, layers.embed_apply, model.init_cache)
+    saved = [fn.__defaults__ for fn in fns]
+    for fn, defaults in zip(fns, saved):
+        fn.__defaults__ = (torch.float32, *defaults[1:])
+    try:
+        yield
+    finally:
+        for fn, defaults in zip(fns, saved):
+            fn.__defaults__ = defaults
+
+
+@contextlib.contextmanager
+def attention_entry(fn):
+    """``fn`` where ``ops.flash_attention`` calls the flash kernel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = fa.flash_attention_fwd
+    fa.flash_attention_fwd = fn
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd = saved
+
+
+def blockwise_entry(block: int, drop_causal_at: int | None = None):
+    """``blockwise_attention`` with the flash kernel's signature; with
+    ``drop_causal_at``, that call (0 = the first layer's) drops its causal
+    mask: the planted fault."""
+    from repro_torch.models.attention import blockwise_attention
+
+    calls = []
+
+    def entry(q, k, v, causal=True):
+        calls.append(1)
+        return blockwise_attention(q, k, v, causal and len(calls) - 1 != drop_causal_at,
+                                   block, 0)
+
+    return entry
+
+
+@contextlib.contextmanager
+def recording(calls: list):
+    """Record (args, kwargs, result) of every capacity-path ``moe_apply``
+    call (the dense fallback routes nothing) into ``calls``."""
+    from repro_torch.models import moe
+
+    saved = moe.moe_apply
+
+    def recorded(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        if not kwargs.get("dense_fallback"):
+            calls.append((args, kwargs, out))
+        return out
+
+    moe.moe_apply = recorded
+    try:
+        yield calls
+    finally:
+        moe.moe_apply = saved
+
+
+def routing(p, x, n_experts: int, top_k: int, capacity_factor: float):
+    """An MoE layer's routing, per token (B*S of them), as ``moe_apply``
+    routes: the router's (B*S, E) probabilities, each token's top k
+    experts in descending order, and a (B*S, k) mask of the choices kept,
+    those whose rank among the earlier choices (token-major) of their row
+    for the same expert is under the capacity."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, d = x.shape
+    probs = torch.softmax(x.reshape(-1, d).float() @ p["router"]["w"].float(), dim=-1)
+    top_i = torch.topk(probs, top_k, dim=-1).indices
+    capacity = max(1, int(s * top_k / n_experts * capacity_factor))
+    onehot = F.one_hot(top_i.reshape(b, s * top_k), n_experts)           # (B, L, E)
+    rank = ((onehot.cumsum(dim=1) - onehot) * onehot).sum(-1)            # earlier choices
+    return probs, top_i, (rank < capacity).reshape(b * s, top_k)
+
+
+@contextlib.contextmanager
+def pinned_routing(calls: list):
+    """Every capacity-path ``moe_apply`` as ``moe_plain`` routed as the
+    recorded ``calls`` were, in order (the choices and what capacity kept;
+    the probabilities that weight them are the call's own): a second
+    prefill then routes each token as the first did, so that the two
+    compute one continuous function and no near-tie of a router can part
+    them."""
+    from repro_torch.models import moe
+
+    saved, recorded = moe.moe_apply, iter(calls)
+
+    def pinned(p, x, n_experts, top_k, capacity_factor=1.25, dense_fallback=False):
+        if dense_fallback:
+            return saved(p, x, n_experts, top_k, capacity_factor, dense_fallback)
+        args, kwargs, _ = next(recorded)
+        route = routing(*args[:4], kwargs["capacity_factor"])[1:]
+        return moe_plain(p, x, n_experts, top_k, capacity_factor, route)[0]
+
+    moe.moe_apply = pinned
+    try:
+        yield
+    finally:
+        moe.moe_apply = saved
+
+
+def moe_plain(p, x, n_experts: int, top_k: int, capacity_factor: float, route=None):
+    """The capacity dispatch's function computed densely: route as
+    ``moe_apply`` does (or as ``route``, the top-k experts and kept mask of
+    ``routing``, says), drop each choice whose rank among the earlier
+    choices (token-major) of its row for the same expert reaches the
+    capacity, and weight every expert's SwiGLU output by the kept choices'
+    probabilities.  Returns the output and the number of choices dropped."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import swiglu_apply
+
+    b, s, d = x.shape
+    t, bf16 = b * s, torch.bfloat16
+    xf = x.reshape(t, d)
+    probs, top_i, kept = routing(p, x, n_experts, top_k, capacity_factor)
+    if route is not None:
+        top_i, kept = route
+    top_p = probs.gather(1, top_i)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    weights = torch.zeros((t, n_experts), device=x.device).scatter_add_(1, top_i, top_p * kept)
+    h = torch.einsum("td,edf->tef", xf.to(bf16), p["w_gate"].to(bf16))
+    u = torch.einsum("td,edf->tef", xf.to(bf16), p["w_up"].to(bf16))
+    y = torch.einsum("tef,efd->ted", F.silu(h) * u, p["w_down"].to(bf16))
+    out = torch.einsum("ted,te->td", y, weights.to(bf16))
+    if "shared" in p:
+        out = out + swiglu_apply(p["shared"], xf)
+    return out.reshape(b, s, d).to(x.dtype), int((~kept).sum())
+
+
+def decode_against(params, cfg, dev, tokens, rows, max_len: int, tol: dict,
+                   cross=None) -> dict:
+    """Feed ``tokens`` (B, T) one position a step through ``decode_step``
+    and hold each step's logits against ``rows`` (B, T, V), forward's
+    logits of the same positions, under ``tol``.  ``cross``: whisper's
+    encoder output, whose K/V fill the cross-attention cache first.  Returns
+    the worst closeness and each step's time (CUDA events)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import dense_apply
+
+    b, steps = tokens.shape
+    cache = init_cache(cfg, b, max_len, device=dev)
+    if cross is not None:
+        for i in range(cfg.n_layers):
+            lp = tf.layer(params["dec_layers"], i)["cross"]
+            shape = (b, cross.shape[1], cfg.n_kv_heads, cfg.head_dim)
+            cache["cross"]["k"][i, :, :cross.shape[1]] = dense_apply(lp["wk"], cross).reshape(shape)
+            cache["cross"]["v"][i, :, :cross.shape[1]] = dense_apply(lp["wv"], cross).reshape(shape)
+        cache["enc_len"].fill_(cross.shape[1])
+    worst = {"max_abs_err": 0.0, "tolerance_share": 0.0, "rel_rms_err": 0.0}
+    times = []
+    for t in range(steps):
+        (logits, cache), ms = event_ms(lambda: decode_step(
+            params, cfg, cache, {"tokens": tokens[:, t:t + 1], "cur_len": t}))
+        times.append(ms)
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name}: decode step {t} not finite")
+        for key, value in zip(worst, closeness(logits[:, 0], rows[:, t], tol)):
+            worst[key] = max(worst[key], value)
+    return {**worst, "step_ms": times}
+
+
+def run_model(name, cfg, dev, counters, failures: list) -> dict:
+    """One model on the card: seeded params; a prefill with the kernel (its
+    launches counted) against the same prefill with blockwise attention in
+    the kernel's place; for the main model a planted fault; an MoE layer's
+    dispatch against its plain version; decode against forward (for a
+    recurrent model also in fp32); for the main model, serving."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import encode
+
+    flash = counters["flash_attention_fwd"]
+    main = name == MAIN_ARCH
+    recurrent = cfg.family in ("hybrid", "xlstm")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=MODEL_SEED, device=dev)
+    leaves = []
+    tree_map(leaves.append, params)
+    n_params = sum(x.numel() for x in leaves)
+    del leaves
+    rng = np.random.default_rng(MODEL_SEED)
+    b, s = (PREFILL_BATCH, PREFILL_SEQ) if main else (
+        1, WHISPER_TOKENS if cfg.family == "encdec" else CUT_SEQ)
+    batch = model_batch(cfg, dev, rng, b, s)
+    res = {"name": name, "layers": cfg.n_layers, "params": n_params, "prefill": [b, s]}
+
+    def held(close, tol: dict, what: str, **extra) -> dict:
+        out = dict(zip(("max_abs_err", "tolerance_share", "rel_rms_err"), close), **extra)
+        if out["tolerance_share"] > 1.0 or out["rel_rms_err"] > tol["rel_rms"]:
+            failures.append(f"{name} {what}: {out}")
+        return out
+
+    def prefill():
+        hidden = forward(params, cfg, batch)
+        return hidden, unembed(params, hidden[:, -1:])
+
+    calls = []
+    before = flash.launches
+    with recording(calls):
+        hidden, logits = prefill()
+    torch.cuda.synchronize()
+    res["launches"] = flash.launches - before
+    res["expected_launches"] = self_attention_layers(cfg)
+    if res["launches"] != res["expected_launches"]:
+        failures.append(f"{name}: {res['launches']} flash launches in a prefill, "
+                        f"{res['expected_launches']} self-attention layers")
+    check(bool(torch.isfinite(hidden).all()), f"{name}: prefill not finite")
+    res["prefill_ms"] = median_ms(prefill, PREFILL_RUNS)
+    with attention_entry(blockwise_entry(cfg.attn_block)), pinned_routing(calls):
+        want_hidden, want_logits = prefill()
+    res["prefill_hidden_vs_blockwise"] = held(
+        closeness(hidden, want_hidden, WHOLE_MODEL), WHOLE_MODEL,
+        "prefill hidden with the kernel vs blockwise")
+    res["prefill_logits_vs_blockwise"] = held(
+        closeness(logits, want_logits, WHOLE_MODEL), WHOLE_MODEL,
+        "prefill logits with the kernel vs blockwise")
+    del want_hidden, want_logits
+    if main and res["expected_launches"]:
+        with attention_entry(blockwise_entry(cfg.attn_block, drop_causal_at=0)):
+            wrong, _ = prefill()
+        close = closeness(wrong, hidden, WHOLE_MODEL)
+        res["planted_fault"] = dict(zip(("max_abs_err", "tolerance_share", "rel_rms_err"), close),
+                                    fault="layer 0's causal mask dropped")
+        if close[1] <= 1.0 and close[2] <= WHOLE_MODEL["rel_rms"]:
+            failures.append(f"{name}: the planted fault passed: {res['planted_fault']}")
+        del wrong
+    if calls:
+        (p, x, n_experts, top_k), kwargs, out = calls[0][0][:4], calls[0][1], calls[0][2]
+        want, dropped = moe_plain(p, x, n_experts, top_k, kwargs["capacity_factor"])
+        res["moe_dispatch_vs_plain"] = held(
+            closeness(out, want, OTHER_ROUNDING), OTHER_ROUNDING,
+            "MoE capacity dispatch vs its plain version", choices_dropped=dropped)
+        del p, x, out, want
+
+    # decode against forward
+    if main:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT))).to(dev)
+        rows = unembed(params, forward(params, cfg, {"tokens": tokens}))
+        cross, max_len = None, DECODE_MAX_LEN
+    else:
+        tokens = batch["tokens"][:, :CUT_DECODE_STEPS]
+        if cfg.frontend == "vision_stub":
+            # decode takes text alone: hold it against a forward of the text alone
+            text_cfg = dataclasses.replace(cfg, frontend=None)
+            rows = unembed(params, forward(params, text_cfg, {"tokens": tokens}))
+        else:
+            rows = unembed(params, hidden[:, :CUT_DECODE_STEPS])
+        cross = encode(params, cfg, batch["frames"]) if cfg.family == "encdec" else None
+        max_len = CUT_DECODE_STEPS if cross is None else cross.shape[1]
+    closeness_of = operator.itemgetter("max_abs_err", "tolerance_share", "rel_rms_err")
+    tol = RECURRENT_MODEL[cfg.family] if recurrent else WHOLE_MODEL
+    decode = decode_against(params, cfg, dev, tokens, rows, max_len, tol, cross)
+    res["decode"] = held(closeness_of(decode), tol, "decode vs forward")
+    if recurrent:
+        with fp32_compute():
+            rows = unembed(params, forward(params, cfg, batch)[:, :CUT_DECODE_STEPS])
+            exact = decode_against(params, cfg, dev, tokens, rows, max_len, FP32_MODEL)
+        res["decode_fp32"] = held(closeness_of(exact), FP32_MODEL, "decode vs forward in fp32")
+    res["decode_batch"] = list(tokens.shape)
+    res["decode_step_ms"] = statistics.median(decode["step_ms"])
+    if main:
+        res["serve"] = serve_model(params, cfg, dev, failures)
+    del params, batch, hidden, logits, rows, calls
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  {name} ({cfg.n_layers} layers, {n_params} params): prefill {b}x{s} "
+          f"{res['prefill_ms']:.3f} ms, {res['launches']} flash launches "
+          f"({res['expected_launches']} self-attention layers); kernel vs blockwise: hidden "
+          f"{res['prefill_hidden_vs_blockwise']['tolerance_share']:.3g} of the allowance "
+          f"(rel {res['prefill_hidden_vs_blockwise']['rel_rms_err']:.3g}), logits "
+          f"{res['prefill_logits_vs_blockwise']['tolerance_share']:.3g} "
+          f"(rel {res['prefill_logits_vs_blockwise']['rel_rms_err']:.3g}); "
+          f"decode {tuple(tokens.shape)} vs "
+          f"forward {res['decode']['tolerance_share']:.3g} (rel {res['decode']['rel_rms_err']:.3g})"
+          f", {res['decode_step_ms']:.3f} ms a step; "
+          f"{res['seconds']:.1f} s", flush=True)
+    for key in ("planted_fault", "moe_dispatch_vs_plain", "decode_fp32"):
+        if key in res:
+            print(f"    {key}: {res[key]}", flush=True)
+    return res
+
+
+def serve_model(params, cfg, dev, failures: list) -> dict:
+    """``ServeLoop`` over the main model: requests with 1-5-token prompts,
+    some with capabilities lacking the READ right, as ``launch.serve``
+    makes them.  Every good request must get ``SERVE_MAX_TOKENS`` tokens;
+    every bad one must be rejected before it takes a slot."""
+    from repro_torch.core.auth import CapabilityAuthority, Rights
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.runtime.serve_loop import Request, ServeLoop
+
+    authority = CapabilityAuthority(b"serving-key-0123")
+    now = int(time.time())
+    rng = np.random.default_rng(MODEL_SEED)
+    reqs, bad = [], set()
+    for i in range(SERVE_REQUESTS):
+        if rng.random() < SERVE_REJECT_RATE:
+            bad.add(i)
+        cap = authority.issue(client_id=i, object_id=0, offset=0, length=1 << 20,
+                              rights=int(Rights.WRITE if i in bad else Rights.READ),
+                              expiry=now + 3600)
+        reqs.append(Request(i, rng.integers(1, cfg.vocab, rng.integers(1, 6)).tolist(),
+                            SERVE_MAX_TOKENS, cap))
+    seated = set()
+
+    def step(p, c, b):
+        seated.update(r.rid for r in loop.slots if r is not None)
+        return decode_step(p, cfg, c, b)
+
+    loop = ServeLoop(step, params, lambda: init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN,
+                                                      device=dev),
+                     SERVE_SLOTS, authority, eos_id=-1)
+    t0 = time.perf_counter()
+    done = loop.run(reqs)
+    wall = time.perf_counter() - t0
+    served = [r for r in done if not r.rejected]
+    rejected = sorted(r.rid for r in done if r.rejected)
+    tokens = sum(len(r.out) for r in served)
+    ok = (len(done) == SERVE_REQUESTS and rejected == sorted(bad) and not seated & bad
+          and all(len(r.out) == SERVE_MAX_TOKENS for r in served)
+          and all(not r.out for r in done if r.rejected))
+    if not ok:
+        failures.append(f"serving: rejected {rejected} (bad {sorted(bad)}), seated {seated}, "
+                        f"tokens {[len(r.out) for r in served]}")
+    res = {"requests": SERVE_REQUESTS, "served": len(served), "rejected": rejected,
+           "tokens": tokens, "steps": loop.steps, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "ms_per_step": wall / loop.steps * 1e3}
+    print(f"  serving {cfg.name}: {len(served)} requests served ({tokens} tokens), "
+          f"{len(rejected)} rejected, {loop.steps} batched steps in {wall:.3f} s: "
+          f"{res['tokens_per_s']:.1f} tokens/s, {res['ms_per_step']:.3f} ms a step", flush=True)
+    return res
+
+
+def drive_models(dev, counters) -> list[dict]:
+    """Phase 6: every model of ``model_configs()`` on the card, one after the
+    other (each freed before the next); fails after the last if any check
+    failed."""
+    import torch
+
+    failures: list[str] = []
+    results = []
+    with torch.no_grad():
+        for name, cfg in model_configs().items():
+            results.append(run_model(name, cfg, dev, counters, failures))
+    check(not failures, "phase 6 failed:\n  " + "\n  ".join(failures))
+    return results
+
+
 def count_launches(rows: list[dict], counters: dict, path: str) -> None:
     """Set each row's launches from its counter and fail on a kernel the
     path did not launch."""
@@ -1057,23 +1570,34 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
+    seconds = {}
     t0 = time.perf_counter()
     per_source = _build.build()
     print(f"phase 1: built {sorted(per_source)} in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})", flush=True)
     flash_build = inspect_flash_build()
     gf_build = inspect_gf_build()
+    seconds["1"] = time.perf_counter() - t0
 
-    print("phase 2: kernels against their plain versions", flush=True)
+    def phase(name: str, title: str):
+        seconds[name] = time.perf_counter()
+        print(f"phase {name}: {title}", flush=True)
+
+    def phase_done(name: str):
+        seconds[name] = time.perf_counter() - seconds[name]
+        print(f"  phase {name}: {seconds[name]:.1f} s", flush=True)
+
+    phase("2", "kernels against their plain versions")
     dataplane_rows, _ = check_kernels(dev)
     copy = copy_rate(dev)
     torch.cuda.empty_cache()
     attention_rows = check_attention_kernels(dev)
     attention_rows[0]["hgmma"] = sum(flash_build["hgmma"].values())
     attention_rows[0]["nvcc_s"] = per_source.get("flash_attention")
+    phase_done("2")
 
     counters = {fn.__name__: fn for fn in (*ge.KERNELS, *xr.KERNELS, *fa.KERNELS)}
-    print("phase 3: data-plane main path", flush=True)
+    phase("3", "data-plane main path")
     for fn in counters.values():
         fn.launches = 0
     drive_entry_points(dev)
@@ -1081,16 +1605,18 @@ def main() -> int:
     torch.cuda.synchronize()
     count_launches(dataplane_rows, counters, "data-plane")
     torch.cuda.empty_cache()
+    phase_done("3")
 
-    print("phase 4: attention main path", flush=True)
+    phase("4", "attention main path")
     for fn in counters.values():
         fn.launches = 0
     attention = drive_attention_path(dev)
     torch.cuda.synchronize()
     count_launches(attention_rows, counters, "attention")
     torch.cuda.empty_cache()
+    phase_done("4")
 
-    print("phase 5: checkpoint path", flush=True)
+    phase("5", "checkpoint path")
     for fn in counters.values():
         fn.launches = 0
     checkpoint = drive_checkpoint(dev, counters)
@@ -1101,9 +1627,31 @@ def main() -> int:
           f"{matmul_row['name']} was not launched on the checkpoint main path")
     print(f"  launches on the checkpoint main path: "
           f"{ {matmul_row['name']: matmul_row['checkpoint_launches']} }", flush=True)
+    torch.cuda.empty_cache()
+    phase_done("5")
+
+    phase("6", "model serving path")
+    for fn in counters.values():
+        fn.launches = 0
+    models = drive_models(dev, counters)
+    torch.cuda.synchronize()
+    flash_row = attention_rows[0]
+    flash_row["model_launches"] = counters[flash_row["name"]].launches
+    check(flash_row["model_launches"] > 0,
+          f"{flash_row['name']} was not launched on the model serving path")
+    print(f"  launches on the model serving path: "
+          f"{ {flash_row['name']: flash_row['model_launches']} }", flush=True)
+    main_model = next(m for m in models if m["name"] == MAIN_ARCH)
+    serve = main_model["serve"]
+    print(f"  {MAIN_ARCH} on {card}: prefill {main_model['prefill_ms']:.3f} ms "
+          f"(B={main_model['prefill'][0]}, S={main_model['prefill'][1]}), decode "
+          f"{main_model['decode_step_ms']:.3f} ms a step (B={main_model['decode_batch'][0]}), "
+          f"serving {serve['steps']} steps, {serve['tokens_per_s']:.1f} tokens/s", flush=True)
+    phase_done("6")
 
     print(json.dumps({"cluster": cluster, "attention": attention, "checkpoint": checkpoint,
-                      "flash_build": flash_build, "gf_build": gf_build, "copy": copy}))
+                      "models": models, "flash_build": flash_build, "gf_build": gf_build,
+                      "copy": copy, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": dataplane_rows + attention_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,11 +43,13 @@
 //  * The (B,S,H,D) layout is read through strides by 4-D tensor maps (one
 //    per operand and column chunk) encoded on the host per call: rows at or
 //    past S load as zeros, keys at or past S score -1e30.  Rows are cut in
-//    64-column chunks with the 128-byte swizzle and, for a width of 80, one
-//    16-column chunk with the 32-byte swizzle.  TMA needs 16-byte aligned
-//    base addresses and strides; the Python wrapper copies other operands.
+//    64-column chunks with the 128-byte swizzle and, for a width of 80 or
+//    160, one or two 16-column chunks with the 32-byte swizzle.  TMA needs
+//    16-byte aligned base addresses and strides; the Python wrapper copies
+//    other operands.
 //  * Shared memory: Q 128 x D, 2 stages of K 128 x D and V 128 x Dv, bf16:
-//    208 KiB at D = 192, Dv = 128 (of the 227 KiB a block may opt into).
+//    208 KiB at D = 192, Dv = 128 and 201 KiB at D = Dv = 160 (zamba2's
+//    shared block), of the 227 KiB a block may opt into.
 //
 // fp32, the SIMT body (namespace simt): the tensor cores have no exact fp32
 // (TF32 keeps 10 mantissa bits), so fp32 FMAs on the CUDA cores:
@@ -96,7 +98,7 @@ template <int W> struct Tile {
   static constexpr int kWide = W / 64;
   static constexpr int kNarrow = (W % 64) / 16;
   static constexpr uint32_t kBytes = kWide * kWideBytes + kNarrow * kNarrowBytes;
-  static_assert(W % 64 == 0 || W % 64 == 16, "widths are 64a + 16b with b <= 1");
+  static_assert(W % 16 == 0 && kNarrow <= 2, "widths are 64a + 16b with b <= 2");
 };
 
 // Where the head, row (sequence) and batch dims sit (1..3) in an operand's
@@ -122,9 +124,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const Maps& m, const Per
 #pragma unroll
   for (int i = 0; i < Tile<W>::kWide; ++i)
     tma_load_4d(dst + i * kWideBytes, &m.wide, bar, 64 * i, c1, c2, c3);
-  if (Tile<W>::kNarrow)
-    tma_load_4d(dst + Tile<W>::kWide * kWideBytes, &m.narrow, bar, 64 * Tile<W>::kWide, c1, c2,
-                c3);
+#pragma unroll
+  for (int j = 0; j < Tile<W>::kNarrow; ++j)
+    tma_load_4d(dst + Tile<W>::kWide * kWideBytes + j * kNarrowBytes, &m.narrow, bar,
+                64 * Tile<W>::kWide + 16 * j, c1, c2, c3);
 }
 
 // K-major descriptor of k16 step ks of a Tile<W>, starting `row` rows in
@@ -133,7 +136,10 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int ks, int row) 
   if (ks < 4 * Tile<W>::kWide)
     return smem_desc(tile + (ks / 4) * kWideBytes + row * 128 + (ks % 4) * 32, 16, 1024,
                      kSwizzle128);
-  return smem_desc(tile + Tile<W>::kWide * kWideBytes + row * 32, 16, 256, kSwizzle32);
+  // past the wide chunks, k16 step ks is the whole of narrow chunk ks - 4 * kWide
+  return smem_desc(tile + Tile<W>::kWide * kWideBytes + (ks - 4 * Tile<W>::kWide) * kNarrowBytes +
+                       row * 32,
+                   16, 256, kSwizzle32);
 }
 
 template <int D, int DV>
@@ -231,10 +237,12 @@ flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
           if constexpr (TV::kWide == 2) wgmma_rs_n128(acc, p + 4 * kk, dv);
           else wgmma_rs_n64(acc, p + 4 * kk, dv);
         }
-        if constexpr (TV::kNarrow) {
-          const uint64_t dv =
-              smem_desc(tv + TV::kWide * kWideBytes + kk * 16 * 32, 16, 256, kSwizzle32);
-          wgmma_rs_n16(acc + 32 * TV::kWide, p + 4 * kk, dv);
+#pragma unroll
+        for (int j = 0; j < TV::kNarrow; ++j) {
+          const uint64_t dv = smem_desc(tv + TV::kWide * kWideBytes + j * kNarrowBytes +
+                                            kk * 16 * 32,
+                                        16, 256, kSwizzle32);
+          wgmma_rs_n16(acc + 32 * TV::kWide + 8 * j, p + 4 * kk, dv);
         }
       }
       wgmma_commit();
@@ -448,6 +456,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64
     case 64: return dispatch_dv<64>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
     case 80: return dispatch_dv<80>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
     case 128: return dispatch_dv<128>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
+    case 160:   // zamba2's shared block: (160, 160) only
+      if (DV != 160) return cudaErrorInvalidValue;
+      return launch<160, 160>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
     case 192: return dispatch_dv<192>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -656,6 +667,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64
     case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
     case 80: return launch<80>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
     case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
+    case 160: return launch<160>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -668,8 +680,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64
 // {q,k,v}_s{b,s,h} and unit stride in the last dim -> o (B,S,H,Dv),
 // contiguous.  dtype: 0 = fp32 (the SIMT body), 1 = bf16 (the tensor-core
 // body; base addresses and strides 16-byte aligned).  The caller checks
-// shapes, H % Hkv == 0, D in {64, 80, 128, 192}, Dv in {64, 80, 128} and
-// B, S >= 1.
+// shapes, H % Hkv == 0, (D, Dv) in {64, 80, 128, 192} x {64, 80, 128} or
+// (160, 160), and B, S >= 1.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int64_t B, int64_t S, int64_t H, int64_t Hkv,
                                    int64_t D, int64_t DV, int64_t q_sb, int64_t q_ss,
@@ -701,5 +713,6 @@ extern "C" int64_t flash_attention_tc_smem_bytes(int64_t D, int64_t DV) {
   if (D == 80) pick(std::integral_constant<int, 80>{});
   if (D == 128) pick(std::integral_constant<int, 128>{});
   if (D == 192) pick(std::integral_constant<int, 192>{});
+  if (D == 160 && DV == 160) bytes = int64_t(tc::smem_bytes<160, 160>());
   return bytes;
 }

@@ -43,9 +43,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims of the supported architectures (zamba2: 80; deepseek-v2 MLA: 192/128)
-SUPPORTED_D = (64, 80, 128, 192)
-SUPPORTED_DV = (64, 80, 128)
+#: the (D, Dv) head-dim pairs the kernel takes: every pair of 64, 80, 128, 192
+#: with 64, 80, 128 (the supported architectures' self-attention: whisper 64,
+#: yi and most 128, deepseek-v2 MLA 192/128), and zamba2's shared block
+#: (d_model 2 x 2560 over 32 heads: 160/160)
+HEAD_DIMS = tuple((d, dv) for d in (64, 80, 128, 192) for dv in (64, 80, 128)) + ((160, 160),)
 #: keys per KV tile of the bf16 (tensor-core) body, tc::kBK in the source
 KV_TILE = 128
 #: keys per KV tile of the fp32 (SIMT) body, simt::kBK in the source
@@ -108,9 +110,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "must share B and S (and k, v their heads; q, k their head dim)")
     if hkv < 1 or h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
-    if d not in SUPPORTED_D or dv not in SUPPORTED_DV:
-        raise ValueError(f"head dims D={d}, Dv={dv} outside D in {SUPPORTED_D}, "
-                         f"Dv in {SUPPORTED_DV}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims (D, Dv) = ({d}, {dv}) not in {HEAD_DIMS}")
     if not q.device == k.device == v.device:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.device.type not in ("cpu", "cuda"):

@@ -363,19 +363,23 @@ def flash_attention(
     causal: bool = True,
     backend: str | None = None,
     device: str | torch.device = DEFAULT_DEVICE,
+    block: int = 512,
 ) -> torch.Tensor:
-    """Dispatch as the reference does: the hand-written kernel on a CUDA
-    device (the counterpart of "Pallas on TPU") or with
-    ``backend="kernel"`` (on CPU tensors, its plain version); else the
-    differentiable ``blockwise_attention(q, k, v, causal, 512, 0)``.  The
-    kernel path is forward only, as the TPU kernel is: it raises when q, k
-    or v needs a gradient."""
+    """Self-attention, routed by one rule decided before the call: the
+    hand-written kernel (the counterpart of the reference's "Pallas on TPU")
+    when the operands are on a CUDA device and none needs a gradient, or
+    with ``backend="kernel"`` (on CPU tensors, its plain version); else the
+    differentiable ``blockwise_attention(q, k, v, causal, block, 0)``.  The
+    kernel is forward only, as the TPU kernel is: asked for by name, it
+    raises when q, k or v needs a gradient.  It ignores ``block``: it walks
+    its own KV tiles.  A kernel that fails to build or launch raises."""
     if backend not in (None, "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
     q, k, v = (_float_on(x, dev) for x in (q, k, v))
-    if backend == "kernel" or dev.type == "cuda":
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if backend == "kernel" or (dev.type == "cuda" and not needs_grad):
         return flash_attention_kernel.flash_attention_fwd(q, k, v, causal)
     from repro_torch.models.attention import blockwise_attention
 
-    return blockwise_attention(q, k, v, causal, 512, 0)
+    return blockwise_attention(q, k, v, causal, block, 0)

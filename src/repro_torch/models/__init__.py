@@ -1,11 +1,11 @@
-"""Model building blocks of the port: the shared layers and attention.
+"""Model zoo for the assigned architectures (PyTorch port of ``repro.models``).
 
-Only what this slice has: ``layers`` (dense, norms, MLPs, embedding,
-rotary embeddings, chunked cross-entropy), ``attention`` (blockwise
-attention with its recomputing backward, GQA and MLA apply/decode) and
-``convert`` (params carried across from ``repro`` as numpy).  The
-reference's full model stack (transformer, MoE, Mamba2, xLSTM) is not
-ported yet.
+``model`` (the config dataclass and the family-dispatched init, forward,
+loss, cache and decode), ``transformer`` (decoder, encoder and
+cross-decoder layers and their stacks), ``moe``, ``mamba2``, ``xlstm``,
+``attention`` (blockwise attention, GQA and MLA apply/decode; prefill
+self-attention on the flash kernel on a GPU), ``layers`` and ``convert``
+(params and caches carried across from ``repro`` as numpy).
 """
 
 from repro_torch.models.attention import (
@@ -18,3 +18,11 @@ from repro_torch.models.attention import (
     mla_init,
 )
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from repro_torch.models.model import (
+    ModelConfig,
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    loss_fn,
+)

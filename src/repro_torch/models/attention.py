@@ -4,9 +4,15 @@ attention, and KV-cache decode (PyTorch port of ``repro.models.attention``).
 Training attention is *blockwise*: an online-softmax loop over KV blocks,
 so the (S, S) score matrix is never materialized, and a backward pass
 (:class:`_BlockwiseAttention`) that recomputes block scores instead of
-storing per-block residuals (O(S) memory).  The models call it directly,
-as the reference's do; the hand-written flash kernel is reached only
-through :func:`repro_torch.kernels.ops.flash_attention`.
+storing per-block residuals (O(S) memory).
+
+The layers' self-attention goes through
+:func:`repro_torch.kernels.ops.flash_attention`, the one dispatch point:
+the hand-written flash kernel when q, k and v are CUDA tensors and none
+needs a gradient, ``blockwise_attention`` everywhere else (the CPU,
+autograd).  Cross-attention (``kv_in``) always runs blockwise: the kernel
+takes q and k of one length.  A kernel that fails to build or launch
+raises; nothing falls back.
 
 Decode attention computes scores against the full cache with a length
 mask (cost honestly proportional to the cache length).  Unlike the
@@ -21,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense_apply, dense_init
 
 NEG_INF = -1e30
@@ -230,7 +237,10 @@ def gqa_apply(
     if kv_in is None and rope_theta > 0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    out = blockwise_attention(q, k, v, causal and kv_in is None, block, 0)
+    if kv_in is None:
+        out = ops.flash_attention(q, k, v, causal, device=q.device, block=block)
+    else:
+        out = blockwise_attention(q, k, v, False, block, 0)
     return dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
 
 
@@ -332,7 +342,7 @@ def mla_apply(
     v = dense_apply(p["w_uv"], c_kv).reshape(b, s, n_heads, v_head)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, n_heads, qk_rope)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
-    out = blockwise_attention(qq, k, v, True, block, 0)
+    out = ops.flash_attention(qq, k, v, True, device=qq.device, block=block)
     return dense_apply(p["wo"], out.reshape(b, s, n_heads * v_head))
 
 

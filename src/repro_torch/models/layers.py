@@ -27,6 +27,16 @@ from repro_torch.kernels.ops import resolve_device
 Params = dict[str, Any]
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of a nest of dicts, lists and tuples, which keep
+    their type and order."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, value) for value in tree)
+    return fn(tree)
+
+
 def _init_dense(gen: torch.Generator, d_in: int, d_out: int, scale=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=gen.device)

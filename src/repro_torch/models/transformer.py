@@ -1,0 +1,206 @@
+"""Decoder layers and layer stacks for the dense / MoE / MLA families, and
+whisper's encoder and cross-attending decoder layers (PyTorch port of
+``repro.models.transformer``).
+
+Layer params are built per layer and stored stacked, with a leading layer
+axis, as the reference stores them; the stacks loop over that axis in
+Python with views (``a[i]``), copying nothing.  The reference's ``remat``
+(activation checkpointing) and ``constraint`` (a sharding constraint on the
+residual stream) are training and sharding concerns: this forward runs
+without them, and the training slice of the port honours ``cfg.remat``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import (
+    Params,
+    gelu_mlp_apply,
+    gelu_mlp_init,
+    rmsnorm_apply,
+    rmsnorm_init,
+    swiglu_apply,
+    swiglu_init,
+    tree_map,
+)
+
+
+def layer(stacked: Any, i) -> Any:
+    """Layer ``i`` of a stacked params or cache tree: views, no copies."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+# -- single decoder layer -----------------------------------------------------
+
+
+def decoder_layer_init(gen: torch.Generator, cfg) -> Params:
+    """One pre-norm decoder layer for dense / moe / mla configs."""
+    dev = gen.device
+    p: Params = {"ln1": rmsnorm_init(cfg.d_model, device=dev),
+                 "ln2": rmsnorm_init(cfg.d_model, device=dev)}
+    if cfg.mla_kv_lora:
+        p["attn"] = attn.mla_init(gen, cfg.d_model, cfg.n_heads, cfg.mla_kv_lora,
+                                  cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_head)
+    else:
+        p["attn"] = attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, qkv_bias=cfg.qkv_bias)
+    if cfg.moe_experts:
+        p["mlp"] = moe_mod.moe_init(gen, cfg.d_model, cfg.moe_d_ff, cfg.moe_experts,
+                                    n_shared=cfg.moe_shared, d_ff_shared=cfg.moe_d_ff)
+    elif cfg.mlp_kind == "gelu":
+        p["mlp"] = gelu_mlp_init(gen, cfg.d_model, cfg.d_ff)
+    else:
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _mlp_apply(p: Params, h: torch.Tensor, cfg, dense_fallback: bool) -> torch.Tensor:
+    if cfg.moe_experts:
+        return moe_mod.moe_apply(p["mlp"], h, cfg.moe_experts, cfg.moe_top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 dense_fallback=dense_fallback)
+    if cfg.mlp_kind == "gelu":
+        return gelu_mlp_apply(p["mlp"], h)
+    return swiglu_apply(p["mlp"], h)
+
+
+def decoder_layer_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if cfg.mla_kv_lora:
+        a = attn.mla_apply(p["attn"], h, cfg.n_heads, cfg.mla_kv_lora, cfg.mla_qk_nope,
+                           cfg.mla_qk_rope, cfg.mla_v_head, rope_theta=cfg.rope_theta,
+                           block=cfg.attn_block)
+    else:
+        a = attn.gqa_apply(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           rope_theta=cfg.rope_theta, block=cfg.attn_block)
+    x = x + a
+    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    return x + _mlp_apply(p, h, cfg, cfg.moe_dense_fallback)
+
+
+def decoder_layer_decode(
+    p: Params, x: torch.Tensor, cache_layer, cur_len, cfg
+) -> tuple[torch.Tensor, Any]:
+    """One token through one layer; the layer's cache is written in place."""
+    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if cfg.mla_kv_lora:
+        a, c_c, c_kr = attn.mla_decode(
+            p["attn"], h, cache_layer["c"], cache_layer["kr"], cur_len, cfg.n_heads,
+            cfg.mla_kv_lora, cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_head,
+            rope_theta=cfg.rope_theta)
+        new_cache = {"c": c_c, "kr": c_kr}
+    else:
+        a, ck, cv = attn.gqa_decode(
+            p["attn"], h, cache_layer["k"], cache_layer["v"], cur_len, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, rope_theta=cfg.rope_theta)
+        new_cache = {"k": ck, "v": cv}
+    x = x + a
+    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    # decode: 1 token/row — the dense combine is exact and cheap
+    return x + _mlp_apply(p, h, cfg, dense_fallback=True), new_cache
+
+
+# -- stacks -------------------------------------------------------------------
+
+
+def stacked_init(gen: torch.Generator, n_layers: int,
+                 init_one: Callable[[torch.Generator], Params]) -> Params:
+    """``n_layers`` layers from ``init_one``, stacked on a leading axis.
+
+    The stacked tensors are allocated once and filled layer by layer, so
+    the peak is the stack plus one layer (a stack of 48 yi-9b layers is
+    35 GB in fp32)."""
+    first = init_one(gen)
+    out = tree_map(lambda a: torch.empty((n_layers, *a.shape), dtype=a.dtype,
+                                         device=a.device), first)
+
+    def fill(i, one):
+        for dst, src in zip(_leaves(out), _leaves(one)):
+            dst[i].copy_(src)
+
+    fill(0, first)
+    del first
+    for i in range(1, n_layers):
+        fill(i, init_one(gen))
+    return out
+
+
+def _leaves(tree: Any) -> list[torch.Tensor]:
+    found = []
+    tree_map(found.append, tree)
+    return found
+
+
+def scan_stack(
+    layer_params: Params,
+    x: torch.Tensor,
+    apply_one: Callable[[Params, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """``apply_one`` over the leading layer axis of ``layer_params``."""
+    for i in range(_leaves(layer_params)[0].shape[0]):
+        x = apply_one(layer(layer_params, i), x)
+    return x
+
+
+def scan_stack_decode(
+    layer_params: Params,
+    x: torch.Tensor,
+    cache: Any,                    # tree with leading layer axis, written in place
+    cur_len,
+    apply_one: Callable,           # (lp, x, cache_layer, cur_len) -> (x, cache')
+) -> tuple[torch.Tensor, Any]:
+    for i in range(_leaves(layer_params)[0].shape[0]):
+        x, _ = apply_one(layer(layer_params, i), x, layer(cache, i), cur_len)
+    return x, cache
+
+
+# -- encoder layer (whisper) --------------------------------------------------
+
+
+def encoder_layer_init(gen: torch.Generator, cfg) -> Params:
+    dev = gen.device
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, device=dev),
+        "ln2": rmsnorm_init(cfg.d_model, device=dev),
+        "attn": attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "mlp": gelu_mlp_init(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def encoder_layer_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    a = attn.gqa_apply(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                       rope_theta=0.0, causal=False, block=cfg.attn_block)
+    x = x + a
+    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    return x + gelu_mlp_apply(p["mlp"], h)
+
+
+def cross_decoder_layer_init(gen: torch.Generator, cfg) -> Params:
+    dev = gen.device
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, device=dev),
+        "ln2": rmsnorm_init(cfg.d_model, device=dev),
+        "ln3": rmsnorm_init(cfg.d_model, device=dev),
+        "self": attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "cross": attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "mlp": gelu_mlp_init(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def cross_decoder_layer_apply(
+    p: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg
+) -> torch.Tensor:
+    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    x = x + attn.gqa_apply(p["self"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           rope_theta=cfg.rope_theta, block=cfg.attn_block)
+    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    x = x + attn.gqa_apply(p["cross"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           rope_theta=0.0, causal=False, block=cfg.attn_block, kv_in=enc_out)
+    h = rmsnorm_apply(p["ln3"], x, cfg.norm_eps)
+    return x + gelu_mlp_apply(p["mlp"], h)

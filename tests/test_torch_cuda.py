@@ -33,6 +33,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gf256_encode as ge
 from repro_torch.kernels import ops
 from repro_torch.kernels import xor_reduce as xr
+from repro_torch.models.attention import blockwise_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -346,7 +347,7 @@ def test_gf_matmul_mxu_refuses_operands_the_kernel_does_not_take(cuda):
 # -- flash attention ------------------------------------------------------------------
 
 
-HEAD_DIMS = [(d, dv) for d in fa.SUPPORTED_D for dv in fa.SUPPORTED_DV]
+HEAD_DIMS = list(fa.HEAD_DIMS)
 #: |got - want| <= rtol |want| + row_atol rms(want's row) + atol, and the
 #: relative RMS error at most rel_rms (as chip_smoke.py's SAME_ARITHMETIC)
 TOLERANCE = {
@@ -458,7 +459,11 @@ def test_flash_attention_is_forward_only_on_card(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         fa.flash_attention_fwd(q.requires_grad_(), k, v)
     with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q, k, v, device=cuda)
+        ops.flash_attention(q, k, v, backend="kernel", device=cuda)
+    # a gradient routes the dispatch to the differentiable blockwise path
+    out = ops.flash_attention(q, k, v, device=cuda)
+    assert out.requires_grad
+    assert torch.equal(out.detach(), blockwise_attention(q.detach(), k, v, True, 512, 0))
     assert fa.flash_attention_fwd.launches == before
     with torch.no_grad():
         got = ops.flash_attention(q, k, v, device=cuda)

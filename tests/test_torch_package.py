@@ -7,9 +7,11 @@
     reference's anchor tests of the simulator and the policy presets pass
     on the copies;
 (d) without a GPU, the entry points (the data plane's, ``ops.rs_encode_mxu``,
-    ``ops.flash_attention`` and the layers' tensor makers ``rope_freqs``,
-    ``rmsnorm_init``, ``layernorm_init``) raise unless asked for the CPU, and
-    never quietly compute there; the CPU path never builds a kernel.
+    ``ops.flash_attention``, the layers' tensor makers ``rope_freqs``,
+    ``rmsnorm_init``, ``layernorm_init``, the model's ``init_params`` and
+    ``init_cache``, and serving through ``launch.serve``) raise unless asked
+    for the CPU, and never quietly compute there; the CPU path never builds a
+    kernel.
 """
 
 import ast
@@ -70,6 +72,23 @@ VERBATIM = [
     "policy/__init__.py",
     "membership/__init__.py",
     "namenode/__init__.py",
+    "configs/__init__.py",
+    "configs/base.py",
+    "configs/registry.py",
+]
+
+#: the model stack and the serving path (ported, not copied), which the AST
+#: scan must cover
+MODEL_AND_SERVING = [
+    "models/transformer.py",
+    "models/moe.py",
+    "models/mamba2.py",
+    "models/xlstm.py",
+    "models/model.py",
+    "models/__init__.py",
+    "runtime/serve_loop.py",
+    "launch/__init__.py",
+    "launch/serve.py",
 ]
 
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -95,6 +114,11 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_ast_scan_covers_the_model_stack_and_the_serving_path():
+    scanned = {path.relative_to(PORT).as_posix() for path in _port_files()[:-1]}
+    assert set(MODEL_AND_SERVING) | {"configs/base.py", "configs/registry.py"} <= scanned
+
+
 def test_ast_scan_tells_repro_torch_from_repro(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import repro_torch.core\nfrom repro_torch import kernels\n"
@@ -115,6 +139,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.sim, repro_torch.sim.legacy, repro_torch.policy.timed\n"
         "import repro_torch.policy.flight, repro_torch.control, repro_torch.trace\n"
         "import repro_torch.verify, repro_torch.runtime.straggler, repro_torch.bench\n"
+        "import repro_torch.configs, repro_torch.models.model, repro_torch.models.moe\n"
+        "import repro_torch.models.mamba2, repro_torch.models.xlstm\n"
+        "import repro_torch.runtime.serve_loop, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -187,6 +214,17 @@ def test_entry_points_without_gpu_raise_unless_asked_for_cpu(no_gpu, plain_forbi
     for make in (layers.rope_freqs, layers.rmsnorm_init, layers.layernorm_init):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(64)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_arch("qwen1.5-4b").smoke
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen1.5-4b", "--smoke", "--requests", "2"])
 
 
 def test_bulk_verifier_without_gpu_raises_unless_asked_for_cpu(no_gpu):

@@ -51,7 +51,11 @@ def union_us(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
-def profiled(name: str, fn, out_dir: Path) -> dict:
+def profiled(name: str, fn, out_dir: Path, prefix: str = "checkpoint", top_n: int = 8,
+             group=None) -> dict:
+    """``fn()`` once under the profiler: wall time, device busy and idle
+    shares, the ``top_n`` device events by time and, given ``group`` (event
+    name -> group name), the device time of every event by group."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -67,11 +71,16 @@ def profiled(name: str, fn, out_dir: Path) -> dict:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    prof.export_chrome_trace(str(out_dir / f"checkpoint_{name}_trace.json.gz"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    prof.export_chrome_trace(str(out_dir / f"{prefix}_{name}_trace.json.gz"))
     res = {"wall_s": wall_s, "device_busy_s": busy_s, "busy_share": busy_s / wall_s,
            "idle_share": 1 - busy_s / wall_s, "device_events": len(intervals),
            "device_ms_by_name": {k: v / 1e3 for k, v in top}}
+    if group is not None:
+        groups: dict[str, float] = {}
+        for k, v in by_name.items():
+            groups[group(k)] = groups.get(group(k), 0.0) + v / 1e3
+        res["device_ms_by_group"] = groups
     print(f"  {name}: {wall_s:.3f} s wall, device busy {busy_s * 1e3:.3f} ms "
           f"({res['busy_share']:.5f} of the wall; idle {res['idle_share']:.5f}), "
           f"{len(intervals)} device events", flush=True)
