@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port: the erasure-coded data plane, the
-attention layer, the checkpoint plane and the model serving path.
+attention layer, the checkpoint plane, the model serving path and the
+training runtime.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -89,7 +90,32 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    with capabilities lacking READ: every good request gets 8 tokens, every
    bad one is rejected before it takes a slot.  Prints the prefill ms, the ms
    a decode step, the steps and the tokens per second.
-7. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
+7. The training runtime, with every launch counter set to 0 again
+   (``launch.steps.make_train_step``: ``loss_fn``'s gradients by autograd,
+   remat under ``torch.utils.checkpoint``, AdamW in place).  (a) yi-9b at
+   its published widths, its depth cut to 8 of 48 layers (``TRAIN_DEPTH``:
+   1.91 B params, 30.5 GB of training state), B=1, S=4096, remat on: finite
+   losses; step 0's loss equal, bit for bit, to ``loss_fn`` under no_grad
+   with blockwise attention (the training forward's function), and within a
+   limit derived from ``WHOLE_MODEL`` of the same loss from a prefill on the
+   flash kernel (one launch a layer; the train steps launch none); the
+   median step ms over 3 steps after a warm one, tokens/s, model FLOPs and
+   their share of the bf16 peak, and the peak memory, with remat and
+   without; with deterministic algorithms, the gradients with remat equal
+   to those without; one AdamW update against a float64 update on the host
+   (``ADAMW_LEAVES``); and, on a 2-layer cut with every product in fp32, a
+   directional derivative of the whole backward against a central
+   difference of the loss (``DIRECTIONAL_TOL``).  (b) whisper-base whole
+   through ``launch.train``'s objects (``DataPipeline``, ``Trainer``,
+   ``CheckpointManager`` under RS(4,2) on an 8-node cluster): a compute
+   failure and a lost storage node at step 6 restore step 4's checkpoint,
+   bitwise, through the GF(2^8) kernel's decode, and replay steps 5 and 6
+   with the same losses, bit for bit; every save launches the encode.  (c)
+   every other architecture at its phase 6 cut, one step at B=1, S=512:
+   finite, its gradients with remat equal to those without (dbrx is left
+   out: ``TRAIN_LEFT_OUT``).  (d) ``launch.train.main`` with the reference's
+   documented ``--smoke`` command: one restart, finite losses.
+8. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
    main path, error, times, bound) and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -103,6 +129,7 @@ from __future__ import annotations
 import contextlib
 import json
 import operator
+import os
 import re
 import statistics
 import subprocess
@@ -1178,16 +1205,18 @@ def unembed(params, hidden):
 @contextlib.contextmanager
 def fp32_compute():
     """The model stack with every product in fp32: the defaults through which
-    it picks its compute dtype (``dense_apply``, ``embed_apply``) and its
-    cache dtype (``init_cache``) read float32 inside."""
+    it picks its compute dtype (``dense_apply``, ``embed_apply``, the loss's
+    ``chunked_cross_entropy``) and its cache dtype (``init_cache``) read
+    float32 inside."""
     import torch
 
     from repro_torch.models import layers, model
 
-    fns = (layers.dense_apply, layers.embed_apply, model.init_cache)
+    fns = (layers.dense_apply, layers.embed_apply, layers.chunked_cross_entropy,
+           model.init_cache)
     saved = [fn.__defaults__ for fn in fns]
     for fn, defaults in zip(fns, saved):
-        fn.__defaults__ = (torch.float32, *defaults[1:])
+        fn.__defaults__ = tuple(torch.float32 if d is torch.bfloat16 else d for d in defaults)
     try:
         yield
     finally:
@@ -1544,6 +1573,581 @@ def drive_models(dev, counters) -> list[dict]:
     return results
 
 
+# -- phase 7: the training runtime --------------------------------------------------------
+
+#: the main training model: yi-9b at its published widths with its depth cut
+#: to 8 of 48 layers (1.91 B params): 48 layers need 141 GB of fp32 params,
+#: gradients and AdamW moments, 8 need 30.5 GB
+TRAIN_ARCH, TRAIN_DEPTH = "yi-9b", 8
+TRAIN_BATCH, TRAIN_SEQ = 1, 4096            # train_4k's share of one chip
+TRAIN_TIMED_STEPS = 3                       # timed steps after a warm one
+#: the directional derivative's cut, its step (relative to each leaf's RMS)
+#: and its limit: central differences D(h) = (L(p + h u) - L(p - h u)) / 2h
+#: at h = eps and 2 eps, extrapolated to (4 D(eps) - D(2 eps)) / 3 (error
+#: O(eps^4)), against <grad L, u>.  The fp32 loss's last bits (a sum over
+#: 4096 tokens; its ulp is 1e-6) call for a step as large as that allows.
+DIRECTIONAL_DEPTH, DIRECTIONAL_EPS, DIRECTIONAL_TOL = 2, 1e-2, 1e-2
+#: leaves whose AdamW update is held against a float64 plain update on the
+#: host: an unstacked norm scale (no decay), a stacked one (decays, as in the
+#: reference) and a stacked weight
+ADAMW_LEAVES = ("ln_f/scale", "layers/ln1/scale", "layers/attn/wk/w")
+ADAMW_TOL = 1e-6
+#: remat against no remat where an op of the step warns that it has no
+#: deterministic CUDA path: both orders of a sum then differ in fp32 rounding,
+#: carried through the backward; with every op deterministic, bit for bit
+NONDETERMINISTIC_REMAT = 1e-3
+#: the fault-tolerant runtime: whisper-base whole (6 + 6 layers, 0.10 B
+#: params: 1.2 GB of params and moments a checkpoint), B=8, S=512 (a
+#: multiple of its loss_chunk, 128), 8 steps, a checkpoint every 4, a compute
+#: failure and storage node 2 lost at step 6; launch.train's cluster of 8
+#: nodes and CheckpointPolicy(k=4, m=2), its nodes grown from 256 MiB to
+#: 2 GiB so that the run's four saves (steps 0, 4 and 8, and the trainer's
+#: final blocking save of step 8: 7.2 GB with parity, the last two on the 7
+#: live nodes) fit
+RUNTIME_ARCH = "whisper-base"
+RUNTIME_BATCH, RUNTIME_SEQ = 8, 512
+RUNTIME_STEPS, RUNTIME_CKPT_EVERY, RUNTIME_FAIL_AT = 8, 4, 6
+RUNTIME_NODES, RUNTIME_NODE_CAPACITY, RUNTIME_FAILED_NODE = 8, 1 << 31, 2
+#: the other archs train one step at their phase 6 cuts at B=1, S=512
+CUT_TRAIN_SEQ = 512
+TRAIN_LEFT_OUT = {"dbrx-132b": "one layer's 4.49 B params need 72 GB of training state"}
+#: the reference's documented training command (src/repro/launch/train.py)
+LAUNCHER_ARGS = ["--arch", "yi-9b", "--smoke", "--steps", "30", "--fail-at", "20"]
+
+
+def training_configs() -> tuple:
+    """Phase 7's models: (the main one, cut; the runtime's, whole; the rest
+    at their phase 6 cuts, by name)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    main = dataclasses.replace(ARCHS[TRAIN_ARCH].model, n_layers=TRAIN_DEPTH)
+    cuts = {name: cfg for name, cfg in model_configs().items()
+            if name != MAIN_ARCH and name not in TRAIN_LEFT_OUT}
+    return main, ARCHS[RUNTIME_ARCH].model, cuts
+
+
+def train_batch(cfg, dev, rng, b: int, s: int) -> dict:
+    """Seeded training inputs: ``model_batch``'s and the labels."""
+    import torch
+
+    batch = model_batch(cfg, dev, rng, b, s)
+    batch["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    return batch
+
+
+def train_step_of(cfg, adam=None):
+    """``launch.steps.make_train_step`` for ``cfg`` on one device."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.steps import make_train_step
+
+    arch = next(a for a in ARCHS.values() if a.model.name == cfg.name or a.smoke.name == cfg.name)
+    return make_train_step(dataclasses.replace(arch, model=cfg), SHAPES["train_4k"], None, adam)
+
+
+def by_path(tree) -> dict:
+    from repro_torch.checkpoint.manager import flatten, path_str
+
+    return {path_str(p): x for p, x in flatten(tree)}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside;
+    yields a list that gathers the ops that warned that they have no
+    deterministic path."""
+    import warnings
+
+    import torch
+
+    ops: list[str] = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield ops
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops.extend(sorted({str(w.message).split(" does not have")[0][:120] for w in caught
+                       if "deterministic" in str(w.message)}))
+
+
+def remat_against_none(params, cfg, batch) -> dict:
+    """One step's loss and gradients with ``remat`` on against off, under
+    deterministic algorithms: equal bit for bit, or, where an op warned that
+    it has none, within ``NONDETERMINISTIC_REMAT`` relative RMS error."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.layers import tree_leaves
+
+    with deterministic() as ops:
+        loss_on, on = loss_and_grads(params, dataclasses.replace(cfg, remat=True), batch)
+        loss_off, off = loss_and_grads(params, dataclasses.replace(cfg, remat=False), batch)
+        pairs = list(zip(tree_leaves(on), tree_leaves(off), strict=True))
+        bitwise = bool(torch.equal(loss_on, loss_off)) and all(torch.equal(a, b) for a, b in pairs)
+        worst = 0.0 if bitwise else max(
+            float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+            for a, b in pairs)
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+    del on, off, pairs
+    ok = finite and (bitwise or (bool(ops) and worst <= NONDETERMINISTIC_REMAT))
+    return {"loss": float(loss_on), "finite": finite, "bitwise": bitwise,
+            "worst_rel_err": worst, "nondeterministic_ops": ops, "ok": ok}
+
+
+def adamw_plain(p, g, m, v, step: int, lr: float, gnorm: float, cfg) -> tuple:
+    """The reference's AdamW update of one leaf in float64 on the host."""
+    import torch
+
+    p, g, m, v = (x.detach().cpu().double() for x in (p, g, m, v))
+    step += 1
+    g = g * min(1.0, cfg.grad_clip / max(gnorm, 1e-9))
+    m2 = cfg.b1 * m + (1 - cfg.b1) * g
+    v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+    direction = (m2 / (1 - cfg.b1 ** step)) / (torch.sqrt(v2 / (1 - cfg.b2 ** step)) + cfg.eps)
+    if p.ndim >= 2:
+        direction = direction + cfg.weight_decay * p
+    return p - lr * direction, m2, v2
+
+
+def adamw_against_float64(params, opt, cfg, batch) -> dict:
+    """One AdamW update on the card (``adamw_update`` at the peak learning
+    rate, so that the update stands far above fp32 rounding) against
+    ``adamw_plain`` for ``ADAMW_LEAVES``: params, ``m`` and ``v`` within
+    ``ADAMW_TOL`` of each leaf's largest magnitude."""
+    import torch
+
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+    adam = AdamWConfig()
+    _, grads = loss_and_grads(params, cfg, batch)
+    step = int(opt["step"])
+    gnorm = float(torch.sqrt(sum(g.double().square().sum() for g in tree_leaves(grads))))
+    before = {path: [by_path(tree)[path].detach().cpu().clone()
+                     for tree in (params, grads, opt["m"], opt["v"])] for path in ADAMW_LEAVES}
+    params, opt, metrics = adamw_update(params, grads, opt, adam)
+    del grads
+    res = {"step": step + 1, "lr": float(metrics["lr"]), "grad_norm": float(metrics["grad_norm"]),
+           "grad_norm_f64": gnorm}
+    for path, leaf in before.items():
+        want = adamw_plain(*leaf, step, adam.lr, gnorm, adam)
+        got = [by_path(tree)[path] for tree in (params, opt["m"], opt["v"])]
+        res[path] = max(float((g.detach().cpu().double() - w).abs().max() / w.abs().max())
+                        for g, w in zip(got, want))
+    res["ok"] = all(res[path] <= ADAMW_TOL for path in ADAMW_LEAVES) and \
+        abs(res["grad_norm"] - gnorm) <= ADAMW_TOL * gnorm
+    return res
+
+
+def model_flops(cfg, tokens: int, seq: int) -> dict:
+    """The step's floating-point operations, from its shapes: bf16 products
+    (6 x matmul params x tokens: forward and backward; remat recomputes
+    the layers' forward once more) and the blockwise attention in fp32 as its
+    loops compute it (forward: the KV blocks each query row sees, whole
+    blocks, masked; backward: every block, every row)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+                 + 3 * d * cfg.d_ff)
+    matmul = cfg.n_layers * per_layer + d * cfg.vocab
+    block = min(cfg.attn_block, seq)
+    seen = sum((seq - start) * min(block, seq - start) for start in range(0, seq, block))
+    batch = tokens // seq
+    fwd = 4 * hd * seen * cfg.n_heads * batch * cfg.n_layers
+    bwd = 10 * hd * seq * seq * cfg.n_heads * batch * cfg.n_layers
+    return {"matmul_params": matmul, "bf16": 6 * matmul * tokens,
+            "bf16_recompute": 2 * cfg.n_layers * per_layer * tokens,
+            "attention_fp32": fwd + bwd, "attention_fp32_recompute": fwd,
+            "formula": "6 x matmul params x tokens (bf16) + blockwise attention in fp32: "
+                       "forward 4 x D x (query, key) pairs of the blocks each row sees, "
+                       "backward 10 x D x S^2, x heads x layers"}
+
+
+def train_main_model(cfg, dev, counters, failures: list) -> dict:
+    """7a: the main model's train step at full width: the prefill (the
+    flash kernel) and the training forward; timed steps with and without
+    remat; remat against none; AdamW against float64."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.models.layers import chunked_cross_entropy, tree_leaves
+    from repro_torch.optim.adamw import init_opt_state
+
+    flash = counters["flash_attention_fwd"]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=MODEL_SEED, device=dev)
+    opt = init_opt_state(params)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    rng = np.random.default_rng(MODEL_SEED + 1)
+    batch = train_batch(cfg, dev, rng, TRAIN_BATCH, TRAIN_SEQ)
+    res = {"name": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat": cfg.remat}
+
+    # the serving forward (the flash kernel) and the training forward's
+    # function (blockwise attention in the kernel's place), under no_grad
+    with torch.no_grad():
+        before = flash.launches
+        hidden = forward(params, cfg, batch)
+        prefill_loss = float(chunked_cross_entropy(hidden, params["unembed"]["w"],
+                                                   batch["labels"], chunk=cfg.loss_chunk))
+        res["prefill_launches"] = flash.launches - before
+        logits_rms = float(unembed(params, hidden[:, -cfg.loss_chunk:]).square().mean().sqrt())
+        del hidden
+        with attention_entry(blockwise_entry(cfg.attn_block)):
+            blockwise_loss = float(loss_fn(params, cfg, batch))
+    if res["prefill_launches"] != cfg.n_layers:
+        failures.append(f"{cfg.name}: {res['prefill_launches']} flash launches in the prefill, "
+                        f"{cfg.n_layers} layers")
+
+    step = train_step_of(cfg)
+    before = flash.launches
+    losses, times, peaks = {}, {}, {}
+    for remat in (True, False):
+        fn = step if remat else train_step_of(dataclasses.replace(cfg, remat=False))
+        torch.cuda.reset_peak_memory_stats()
+        key = "remat" if remat else "no_remat"
+        losses[key], times[key] = [], []
+        for i in range(1 + TRAIN_TIMED_STEPS):
+            ctx = deterministic() if (remat and i == 0) else contextlib.nullcontext()
+            start = time.perf_counter()
+            with ctx:
+                params, opt, metrics = fn(params, opt, batch)
+                losses[key].append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - start) * 1e3)
+        peaks[key] = torch.cuda.max_memory_allocated()
+    res["train_step_launches"] = flash.launches - before
+    if res["train_step_launches"]:
+        failures.append(f"{cfg.name}: the train step launched the flash kernel "
+                        f"{res['train_step_launches']} times")
+    all_losses = losses["remat"] + losses["no_remat"]
+    if not all(np.isfinite(all_losses)):
+        failures.append(f"{cfg.name}: a train step's loss is not finite: {all_losses}")
+    # (iv) the step's loss at step 0 is the training forward's function:
+    # blockwise attention's no_grad loss, bit for bit; and the kernel's
+    # prefill within WHOLE_MODEL's relative RMS error on the logits, carried
+    # to the loss by |d CE| <= 2 max |d logit| (in RMS: 2 rel_rms rms(logits))
+    limit = 2 * WHOLE_MODEL["rel_rms"] * logits_rms
+    res["step0_loss"], res["blockwise_loss"], res["prefill_loss"] = (
+        losses["remat"][0], blockwise_loss, prefill_loss)
+    res["prefill_loss_limit"] = limit
+    if losses["remat"][0] != blockwise_loss:
+        failures.append(f"{cfg.name}: step 0's loss {losses['remat'][0]!r} is not the blockwise "
+                        f"forward's {blockwise_loss!r}")
+    if abs(losses["remat"][0] - prefill_loss) > limit:
+        failures.append(f"{cfg.name}: step 0's loss {losses['remat'][0]} vs the kernel's prefill "
+                        f"{prefill_loss}: more than {limit:.3g} apart")
+    flops = model_flops(cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    for key in ("remat", "no_remat"):
+        ms = statistics.median(times[key][1:])
+        model = flops["bf16"] + flops["attention_fp32"]
+        res[key] = {"losses": losses[key], "step_ms": times[key], "median_step_ms": ms,
+                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                    "model_flops": model, "model_tflops_per_s": model / ms / 1e9,
+                    "share_of_bf16_peak": model / (ms * 1e-3) / PEAK_FLOPS["bfloat16"],
+                    "max_memory_allocated": peaks[key]}
+    res["flops"] = flops
+
+    # (ii) remat against none, and (v) AdamW against float64
+    res["remat_vs_none"] = remat_against_none(params, cfg, batch)
+    if not res["remat_vs_none"]["ok"]:
+        failures.append(f"{cfg.name}: gradients with remat vs without: {res['remat_vs_none']}")
+    res["adamw_vs_float64"] = adamw_against_float64(params, opt, cfg, batch)
+    if not res["adamw_vs_float64"]["ok"]:
+        failures.append(f"{cfg.name}: AdamW vs a float64 update: {res['adamw_vs_float64']}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def directional_check(cfg, dev) -> dict:
+    """7a (iii): the whole backward of ``loss_fn`` on a ``DIRECTIONAL_DEPTH``
+    cut with every product in fp32: for a seeded direction u (each leaf's
+    normal draws times its RMS), the extrapolated central difference of L
+    along u (see ``DIRECTIONAL_EPS``) against <grad L, u>, every L through
+    the same blockwise attention."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
+
+    cfg = dataclasses.replace(cfg, n_layers=DIRECTIONAL_DEPTH)
+    rng = np.random.default_rng(MODEL_SEED + 2)
+    with fp32_compute():
+        params = init_params(cfg, seed=MODEL_SEED + 2, device=dev)
+        batch = train_batch(cfg, dev, rng, TRAIN_BATCH, TRAIN_SEQ)
+        _, grads = loss_and_grads(params, cfg, batch)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 7)
+        u = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=dev)
+                     * p.square().mean().sqrt(), params)
+        dot = float(sum((g.double() * d.double()).sum()
+                        for g, d in zip(tree_leaves(grads), tree_leaves(u), strict=True)))
+        del grads
+        losses = {}
+        with torch.no_grad(), attention_entry(blockwise_entry(cfg.attn_block)):
+            for h in (DIRECTIONAL_EPS, -DIRECTIONAL_EPS, 2 * DIRECTIONAL_EPS,
+                      -2 * DIRECTIONAL_EPS):
+                moved = tree_unflatten(params, [p + h * d for p, d in
+                                                zip(tree_leaves(params), tree_leaves(u))])
+                losses[h] = float(loss_fn(moved, cfg, batch))
+                del moved
+
+    def central(h):
+        return (losses[h] - losses[-h]) / (2 * h)
+
+    fd = (4 * central(DIRECTIONAL_EPS) - central(2 * DIRECTIONAL_EPS)) / 3
+    rel = abs(fd - dot) / max(abs(dot), 1e-30)
+    del params, u, batch
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "eps": DIRECTIONAL_EPS, "directional": dot,
+            "finite_difference": fd, "central": central(DIRECTIONAL_EPS), "rel_err": rel,
+            "ok": rel <= DIRECTIONAL_TOL}
+
+
+def train_runtime(cfg, dev, counters, failures: list) -> dict:
+    """7b: the fault-tolerant runtime as ``launch.train`` builds it, on the
+    card: ``RUNTIME_STEPS`` steps, a checkpoint every ``RUNTIME_CKPT_EVERY``
+    under RS(4,2), a compute failure and storage node
+    ``RUNTIME_FAILED_NODE`` lost at step ``RUNTIME_FAIL_AT``.  One restart;
+    the restored state bitwise the state saved; the replayed steps' losses
+    equal their first run's, bit for bit (deterministic algorithms on); the
+    GF(2^8) kernel launched on every save (encode) and on the degraded
+    restore (decode)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy, StorageCluster
+    from repro_torch.data import DataPipeline, PipelineConfig, SyntheticSource
+    from repro_torch.launch.train import make_batch_extras
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+
+    matmul = counters["gf_matmul_bytes_batched"]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=MODEL_SEED, device=dev)
+    opt = init_opt_state(params)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    step = train_step_of(cfg)
+
+    def step_fn(p, o, batch):
+        return step(p, o, make_batch_extras(cfg, dict(batch)))
+
+    pipe = DataPipeline(SyntheticSource(cfg.vocab, seed=SEED),
+                        PipelineConfig(batch=RUNTIME_BATCH, seq=RUNTIME_SEQ), device=dev)
+    cluster = StorageCluster(num_nodes=RUNTIME_NODES, node_capacity=RUNTIME_NODE_CAPACITY,
+                             device=dev)
+    mgr = CheckpointManager(cluster, CheckpointPolicy(k=4, m=2))
+    trainer = Trainer(step_fn, params, opt, pipe, mgr,
+                      TrainLoopConfig(total_steps=RUNTIME_STEPS,
+                                      checkpoint_every=RUNTIME_CKPT_EVERY))
+    del params, opt
+    saves, restores, held = [], [], {}
+    write = mgr._write
+
+    def counted_write(step_no, snap):
+        before = matmul.launches
+        write(step_no, snap)
+        saves.append({"step": step_no, "encode_launches": matmul.launches - before,
+                      "seconds": mgr.save_seconds[-1]})
+
+    mgr._write = counted_write
+    restore = trainer.restore_latest
+
+    def timed_restore():
+        before, ec_before = matmul.launches, totals["ec_s"]
+        start = time.perf_counter()
+        restore()
+        torch.cuda.synchronize()
+        restores.append({"step": trainer.step, "seconds": time.perf_counter() - start,
+                         "ec_s": totals["ec_s"] - ec_before,
+                         "decode_launches": matmul.launches - before})
+        got = by_path({"params": trainer.params, "opt": trainer.opt_state})
+        restores[-1]["bitwise"] = sorted(got) == sorted(held) and all(
+            got[path].dtype == want.dtype and torch.equal(got[path].cpu(), want)
+            for path, want in held.items())
+
+    trainer.restore_latest = timed_restore
+
+    def inject(step_no, tr):
+        if step_no == RUNTIME_CKPT_EVERY and not held:
+            # the state the step-4 checkpoint holds, for the restore to match
+            held.update({path: x.detach().cpu().clone() for path, x in
+                         by_path({"params": tr.params, "opt": tr.opt_state}).items()})
+        if step_no == RUNTIME_FAIL_AT and not tr.restarts:
+            cluster.fail_node(RUNTIME_FAILED_NODE)
+            return True
+        return False
+
+    with deterministic() as ops, ec_wall_time({"ec_s": 0.0}) as totals:
+        try:
+            hist = trainer.run(inject_failure=inject)
+        finally:
+            pipe.close()
+    steps = [h["step"] for h in hist]
+    first = {h["step"]: h["loss"] for h in hist[:RUNTIME_FAIL_AT]}
+    replayed = hist[RUNTIME_FAIL_AT:RUNTIME_FAIL_AT + RUNTIME_FAIL_AT - RUNTIME_CKPT_EVERY]
+    want_steps = [*range(1, RUNTIME_FAIL_AT + 1), *range(RUNTIME_CKPT_EVERY + 1,
+                                                          RUNTIME_STEPS + 1)]
+    save_s = sum(s["seconds"] for s in saves)
+    restore_ec = sum(r["ec_s"] for r in restores)
+    res = {"name": cfg.name, "params": n_params, "batch": [RUNTIME_BATCH, RUNTIME_SEQ],
+           "steps": steps, "losses": [h["loss"] for h in hist], "restarts": trainer.restarts,
+           "replayed_equal": bool(replayed) and all(h["loss"] == first[h["step"]]
+                                                    for h in replayed),
+           "saves": saves, "restores": restores, "save_s": save_s,
+           "save_ec_s": totals["ec_s"] - restore_ec,
+           "restore_s": sum(r["seconds"] for r in restores), "restore_ec_s": restore_ec,
+           "step_ms": statistics.median(h["dt"] for h in hist[1:]) * 1e3,
+           "nondeterministic_ops": ops, "storage": cluster.stats()}
+    if trainer.restarts != 1 or steps != want_steps:
+        failures.append(f"{cfg.name} runtime: {trainer.restarts} restarts, steps {steps}")
+    if not res["replayed_equal"]:
+        failures.append(f"{cfg.name} runtime: replayed losses {[h['loss'] for h in replayed]} "
+                        f"differ from their first run {first}")
+    if not (restores and restores[0]["bitwise"]):
+        failures.append(f"{cfg.name} runtime: the restored state is not the state saved at "
+                        f"step {RUNTIME_CKPT_EVERY}")
+    if not (restores and restores[0]["decode_launches"] > 0):
+        failures.append(f"{cfg.name} runtime: the degraded restore launched no decode kernel")
+    # the step-0 snapshot, one a RUNTIME_CKPT_EVERY steps, the final blocking save
+    want_saves = [*range(0, RUNTIME_STEPS + 1, RUNTIME_CKPT_EVERY), RUNTIME_STEPS]
+    if [s["step"] for s in saves] != want_saves or not all(
+            s["encode_launches"] > 0 for s in saves):
+        failures.append(f"{cfg.name} runtime: saves {saves}")
+    if not all(np.isfinite(res["losses"])):
+        failures.append(f"{cfg.name} runtime: losses {res['losses']}")
+    del trainer
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def train_cut_model(name, cfg, dev, failures: list) -> dict:
+    """7c: one train step of a cut model at B=1, S=``CUT_TRAIN_SEQ`` (llava
+    with its patch tokens, whisper over its frames): finite, and its
+    gradients with remat equal to those without."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.adamw import init_opt_state
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=MODEL_SEED, device=dev)
+    opt = init_opt_state(params)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    batch = train_batch(cfg, dev, np.random.default_rng(MODEL_SEED + 3), 1, CUT_TRAIN_SEQ)
+    res = {"name": name, "layers": cfg.n_layers, "params": n_params,
+           "remat_vs_none": remat_against_none(params, cfg, batch)}
+    if not res["remat_vs_none"]["ok"]:
+        failures.append(f"{name}: gradients with remat vs without: {res['remat_vs_none']}")
+    step = train_step_of(cfg)
+    times, losses = [], []
+    for _ in range(2):                      # a warm step, a timed one
+        start = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    res.update(losses=losses, step_ms=times[-1])
+    if not all(np.isfinite(losses)):
+        failures.append(f"{name}: train step losses {losses}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def train_launcher(dev, failures: list) -> dict:
+    """7d: ``launch.train.main`` with the reference's documented command on
+    the card: one restart, finite losses."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    trainer = train.main([*LAUNCHER_ARGS, "--device", str(dev)])
+    losses = [h["loss"] for h in trainer.history]
+    res = {"args": LAUNCHER_ARGS, "steps": trainer.step, "restarts": trainer.restarts,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "seconds": time.perf_counter() - t0}
+    if trainer.restarts != 1 or not all(np.isfinite(losses)):
+        failures.append(f"launcher: {trainer.restarts} restarts, losses {losses}")
+    return res
+
+
+def drive_training(dev, counters) -> dict:
+    """Phase 7: the training runtime on the card, part by part (each model
+    freed before the next); fails after the last if any check failed."""
+    import torch
+
+    main_cfg, runtime_cfg, cuts = training_configs()
+    failures: list[str] = []
+    res = {"main": train_main_model(main_cfg, dev, counters, failures)}
+    main = res["main"]
+    print(f"  7a {main['name']} ({main['layers']} layers, {main['params']} params), B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}: step {main['remat']['median_step_ms']:.3f} ms with remat "
+          f"({main['remat']['tokens_per_s']:.1f} tokens/s, "
+          f"{main['remat']['model_tflops_per_s']:.1f} TFLOP/s of model FLOPs, "
+          f"{main['remat']['share_of_bf16_peak']:.4f} of 989 TFLOP/s; peak "
+          f"{main['remat']['max_memory_allocated']} B), {main['no_remat']['median_step_ms']:.3f} ms "
+          f"without ({main['no_remat']['max_memory_allocated']} B); model FLOPs "
+          f"{main['remat']['model_flops']:.4g} = {main['flops']['formula']}", flush=True)
+    print(f"    losses {main['remat']['losses']} / {main['no_remat']['losses']}; step 0 "
+          f"{main['step0_loss']!r} = blockwise {main['blockwise_loss']!r}, kernel prefill "
+          f"{main['prefill_loss']!r} (limit {main['prefill_loss_limit']:.3g}, "
+          f"{main['prefill_launches']} flash launches; {main['train_step_launches']} in the "
+          f"train steps); remat vs none {main['remat_vs_none']}; AdamW vs float64 "
+          f"{main['adamw_vs_float64']}", flush=True)
+    res["directional"] = directional_check(main_cfg, dev)
+    print(f"  7a directional derivative (fp32, {res['directional']['layers']} layers): "
+          f"{res['directional']}", flush=True)
+    if not res["directional"]["ok"]:
+        failures.append(f"directional derivative: {res['directional']}")
+    res["runtime"] = train_runtime(runtime_cfg, dev, counters, failures)
+    rt = res["runtime"]
+    print(f"  7b {rt['name']} ({rt['params']} params) B={RUNTIME_BATCH} S={RUNTIME_SEQ}: steps "
+          f"{rt['steps']}, {rt['restarts']} restart, replayed losses equal: "
+          f"{rt['replayed_equal']}; save_s {rt['save_s']:.6f} (EC "
+          f"{rt['save_ec_s'] / max(rt['save_s'], 1e-9):.4f}) over {len(rt['saves'])} saves "
+          f"{[round(s['seconds'], 3) for s in rt['saves']]}, encode launches "
+          f"{[s['encode_launches'] for s in rt['saves']]}; restore_s {rt['restore_s']:.6f} (EC "
+          f"{rt['restore_ec_s'] / max(rt['restore_s'], 1e-9):.4f}), decode launches "
+          f"{[r['decode_launches'] for r in rt['restores']]}, bitwise "
+          f"{[r['bitwise'] for r in rt['restores']]}; step {rt['step_ms']:.3f} ms", flush=True)
+    res["cuts"] = []
+    for name, cfg in cuts.items():
+        res["cuts"].append(train_cut_model(name, cfg, dev, failures))
+        cut = res["cuts"][-1]
+        print(f"  7c {name} ({cut['layers']} layers, {cut['params']} params) B=1 "
+              f"S={CUT_TRAIN_SEQ}: step {cut['step_ms']:.3f} ms, losses {cut['losses']}, remat "
+              f"vs none bitwise {cut['remat_vs_none']['bitwise']} (worst "
+              f"{cut['remat_vs_none']['worst_rel_err']:.3g}, nondeterministic ops "
+              f"{cut['remat_vs_none']['nondeterministic_ops']})", flush=True)
+    for name, why in TRAIN_LEFT_OUT.items():
+        print(f"  7c {name} left out: {why}", flush=True)
+    res["left_out"] = TRAIN_LEFT_OUT
+    res["launcher"] = train_launcher(dev, failures)
+    print(f"  7d launch.train {' '.join(LAUNCHER_ARGS)}: {res['launcher']}", flush=True)
+    torch.cuda.empty_cache()
+    check(not failures, "phase 7 failed:\n  " + "\n  ".join(failures))
+    return res
+
+
 def count_launches(rows: list[dict], counters: dict, path: str) -> None:
     """Set each row's launches from its counter and fail on a kernel the
     path did not launch."""
@@ -1565,6 +2169,9 @@ def main() -> int:
     from repro_torch.kernels import gf256_encode as ge
     from repro_torch.kernels import xor_reduce as xr
 
+    # phase 7 runs with deterministic algorithms, which need cuBLAS's
+    # workspace fixed before its first use
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1649,9 +2256,43 @@ def main() -> int:
           f"serving {serve['steps']} steps, {serve['tokens_per_s']:.1f} tokens/s", flush=True)
     phase_done("6")
 
+    phase("7", "training runtime")
+    for fn in counters.values():
+        fn.launches = 0
+    training = drive_training(dev, counters)
+    torch.cuda.synchronize()
+    matmul_row["training_launches"] = counters[matmul_row["name"]].launches
+    matmul_row["training_encode_launches"] = sum(
+        s["encode_launches"] for s in training["runtime"]["saves"])
+    matmul_row["training_decode_launches"] = sum(
+        r["decode_launches"] for r in training["runtime"]["restores"])
+    check(matmul_row["training_launches"] > 0,
+          f"{matmul_row['name']} was not launched on the training path")
+    flash_row["training_launches"] = counters[flash_row["name"]].launches
+    flash_row["train_step_launches"] = training["main"]["train_step_launches"]
+    print(f"  launches on the training path: {matmul_row['name']} "
+          f"{matmul_row['training_launches']} (7b: encode "
+          f"{matmul_row['training_encode_launches']}, decode "
+          f"{matmul_row['training_decode_launches']}); {flash_row['name']} "
+          f"{flash_row['training_launches']} (7a's prefill; the train steps "
+          f"{flash_row['train_step_launches']})", flush=True)
+    main_train = training["main"]
+    runtime = training["runtime"]
+    print(f"  {main_train['name']} {main_train['layers']} layers training on {card}: step "
+          f"{main_train['remat']['median_step_ms']:.3f} ms with remat, "
+          f"{main_train['no_remat']['median_step_ms']:.3f} ms without; "
+          f"{main_train['remat']['tokens_per_s']:.1f} tokens/s; model FLOPs "
+          f"{main_train['remat']['model_flops']:.4g}, {main_train['remat']['share_of_bf16_peak']:.4f}"
+          f" of the bf16 peak; peak memory {main_train['remat']['max_memory_allocated']} B with "
+          f"remat, {main_train['no_remat']['max_memory_allocated']} B without; "
+          f"{runtime['name']} runtime save_s {runtime['save_s']:.3f} (EC "
+          f"{runtime['save_ec_s']:.3f}), restore_s {runtime['restore_s']:.3f} (EC "
+          f"{runtime['restore_ec_s']:.3f}), step {runtime['step_ms']:.3f} ms", flush=True)
+    phase_done("7")
+
     print(json.dumps({"cluster": cluster, "attention": attention, "checkpoint": checkpoint,
-                      "models": models, "flash_build": flash_build, "gf_build": gf_build,
-                      "copy": copy, "phase_seconds": seconds}))
+                      "models": models, "training": training, "flash_build": flash_build,
+                      "gf_build": gf_build, "copy": copy, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": dataplane_rows + attention_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

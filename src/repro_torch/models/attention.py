@@ -147,6 +147,11 @@ def _bw_attention_fwd_impl(q, k, v, causal, block, q_offset):
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype), lse
 
 
+def _row_dot(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The softmax backward's correction term, ``rowsum(dout * out)``."""
+    return (out * dout).sum(dim=-1)
+
+
 class _BlockwiseAttention(torch.autograd.Function):
     """Blockwise attention with a backward that recomputes block scores from
     (q, k, v, out, lse), storing no per-block residuals."""
@@ -169,7 +174,7 @@ class _BlockwiseAttention(torch.autograd.Function):
         qg = _group_q(q, hkv).float() * scale
         og = _group_q(out, hkv).float()
         dog = _group_q(dout, hkv).float()
-        delta = (og * dog).sum(dim=-1)                  # D_i = rowsum(dout * out)
+        delta = _row_dot(og, dog)                       # D_i = rowsum(dout * out)
         dq = torch.zeros_like(qg)
         dks, dvs = [], []
         for start in range(0, k.shape[1], block):

@@ -34,10 +34,12 @@ def _leaf_to_tensor(leaf, device: torch.device) -> torch.Tensor:
 
 
 def _leaf_to_numpy(leaf: torch.Tensor) -> np.ndarray:
+    # a copy: on the CPU ``Tensor.numpy`` shares the tensor's memory, which
+    # a training step then updates in place
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.numpy()
+    return np.array(t.numpy())
 
 
 def params_from_numpy(tree: Any, device: str | torch.device = DEFAULT_DEVICE) -> Any:
@@ -49,7 +51,7 @@ def params_from_numpy(tree: Any, device: str | torch.device = DEFAULT_DEVICE) ->
 
 def params_to_numpy(tree: Any) -> Any:
     """Nest of dicts, lists and tuples of tensors -> the same nest of numpy
-    arrays on the host.
+    arrays on the host, each a copy.
 
     numpy has no bfloat16, so bf16 tensors come back as float32 (exact).
     """

@@ -29,12 +29,30 @@ Params = dict[str, Any]
 
 def tree_map(fn, tree: Any) -> Any:
     """``fn`` on every leaf of a nest of dicts, lists and tuples, which keep
-    their type and order."""
+    their type; lists and tuples keep their order, and dicts are walked, and
+    rebuilt, in sorted key order (as ``jax.tree_util`` does), so two trees
+    with the same keys give their leaves in the same order."""
     if isinstance(tree, dict):
-        return {key: tree_map(fn, value) for key, value in tree.items()}
+        return {key: tree_map(fn, tree[key]) for key in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, value) for value in tree)
     return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    found: list = []
+    tree_map(found.append, tree)
+    return found
+
+
+def tree_unflatten(template: Any, leaves) -> Any:
+    """``template``'s nest with its leaves replaced, in order, by ``leaves``."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
 
 
 def _init_dense(gen: torch.Generator, d_in: int, d_out: int, scale=None) -> torch.Tensor:
@@ -145,26 +163,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> 
     return out.to(x.dtype)
 
 
+class _CastPerUse(torch.autograd.Function):
+    """``cast`` (``master`` already cast) as a view, whose backward hands
+    ``master`` this use's gradient in ``master``'s dtype: where each use of
+    one cast goes through its own view, the uses' gradients are summed in
+    the master's dtype, as if each use cast it anew, with one copy of the
+    cast in memory (a bf16 yi-9b unembedding is 0.5 GB)."""
+
+    @staticmethod
+    def forward(ctx, master, cast):
+        ctx.dtype = master.dtype
+        return cast.view_as(cast)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
 def chunked_cross_entropy(
     hidden: torch.Tensor,       # (B, S, d) final hidden states
     unembed: torch.Tensor,      # (d, V) projection (fp32 master)
     labels: torch.Tensor,       # (B, S) integer
     chunk: int = 128,
+    dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Mean next-token CE without materializing (B, S, V) logits.
 
     Loops over sequence chunks; each chunk computes (B, chunk, V) logits
-    in bf16 with an fp32 log-sum-exp.
+    in ``dtype`` (bf16, as in the reference) with an fp32 log-sum-exp.
+    The reference's scan body casts ``unembed`` to bf16 in each chunk, so
+    its backward rounds each chunk's gradient of ``unembed`` to bf16 and
+    sums the chunks in fp32; here one cast serves every chunk
+    (:class:`_CastPerUse`) with that backward.
     """
     b, s, _ = hidden.shape
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
-    w = unembed.to(torch.bfloat16)
+    w = unembed.to(dtype)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
-        hc = hidden[:, c0:c0 + chunk].to(torch.bfloat16)
+        hc = hidden[:, c0:c0 + chunk].to(dtype)
         yc = labels[:, c0:c0 + chunk].long()
-        logits = (hc @ w).float()
+        logits = (hc @ _CastPerUse.apply(unembed, w)).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, yc[..., None])[..., 0]
         total = total + (lse - gold).sum()

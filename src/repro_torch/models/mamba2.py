@@ -91,7 +91,10 @@ def mamba2_apply(
         scores = torch.einsum("bqhn,bkhn->bhqk", cc32, bc32)
         seg_h = seg.permute(0, 2, 1)                                # (B,H,Q)
         decay = seg_h[..., :, None] - seg_h[..., None, :]           # (B,H,Qi,Qj)
-        gmat = torch.where(causal, torch.exp(decay), 0.0)
+        # the mask goes on the exponent: above the diagonal decay is positive,
+        # and exp there may overflow to inf, whose gradient times the mask's
+        # zero is NaN (the reference masks exp's output and meets that NaN)
+        gmat = torch.exp(decay.masked_fill(~causal, -math.inf))
         w = scores * gmat                                           # (B,H,Q,Q)
         xdt = xc.float() * dtc[..., None]                           # (B,Q,H,P)
         y_intra = torch.einsum("bhqk,bkhp->bqhp", w, xdt)

@@ -26,10 +26,12 @@ from one ``torch.Generator`` seeded by ``seed`` on ``device``; the numbers
 differ from ``jax.random``'s.  ``device`` defaults to CUDA, which raises
 without a GPU; pass ``device="cpu"`` to run the plain versions there.
 
-The reference's sharding arguments (``ep_spec``, ``resid``, ``attn_specs``)
-and ``cfg.remat`` belong to the training and sharding slices of the port:
-this forward runs without them.  Decode writes every attention cache and
-SSM state in place and returns the cache; ``decode_step`` takes
+``cfg.remat`` runs under ``torch.utils.checkpoint`` where the reference
+puts ``jax.checkpoint``: each layer of a stack, each xLSTM block, each
+Mamba2 layer of a hybrid group and the shared block; only while autograd
+records, so serving is unchanged.  The reference's sharding arguments
+(``ep_spec``, ``resid``, ``attn_specs``) wait for the sharding slice.
+Decode writes every attention cache and SSM state in place and returns the cache; ``decode_step`` takes
 ``cur_len`` as an int or a 0-d tensor and turns it into an int once, so a
 caller that passes an int (the serving loop does) never waits on the
 device for it.
@@ -295,17 +297,16 @@ def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         for lp in params.get("first_layers", []):
             x = tf.decoder_layer_apply(lp, x, dense_cfg)
         x = tf.scan_stack(params["layers"], x,
-                          lambda lp, h: tf.decoder_layer_apply(lp, h, cfg))
+                          lambda lp, h: tf.decoder_layer_apply(lp, h, cfg), remat=cfg.remat)
     elif cfg.family == "hybrid":
         x = _forward_hybrid(params, cfg, x)
     elif cfg.family == "xlstm":
+        mlstm = tf.remat_if(cfg.remat, lambda p, h: xl.mlstm_apply(
+            p, h, cfg.n_heads, cfg.xlstm_pf, cfg.ssm_chunk))
+        slstm = tf.remat_if(cfg.remat, lambda p, h: xl.slstm_apply(p, h, cfg.n_heads))
         for kind, blk in zip(_xlstm_kinds(cfg), params["blocks"]):
             h = rmsnorm_apply(blk["ln"], x, cfg.norm_eps)
-            if kind == "m":
-                y = xl.mlstm_apply(blk["p"], h, cfg.n_heads, cfg.xlstm_pf, cfg.ssm_chunk)
-            else:
-                y = xl.slstm_apply(blk["p"], h, cfg.n_heads)
-            x = x + y
+            x = x + (mlstm if kind == "m" else slstm)(blk["p"], h)
     else:
         raise ValueError(cfg.family)
     return rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
@@ -322,19 +323,29 @@ def _forward_hybrid(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     emb = x  # original embeddings feed every shared-block invocation
     shared = params["shared"]
     d2 = 2 * cfg.d_model
-    groups, per_group = params["group_norms"]["scale"].shape[:2]
-    h = x
-    for g in range(groups):
-        for i in range(per_group):
-            hn = rmsnorm_apply(tf.layer(params["group_norms"], (g, i)), h, cfg.norm_eps)
-            h = h + m2.mamba2_apply(tf.layer(params["groups"], (g, i)), hn, cfg.d_inner,
-                                    cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_groups,
-                                    chunk=cfg.ssm_chunk)
+
+    def mamba_layer(lp, h):
+        norm_p, m_p = lp
+        hn = rmsnorm_apply(norm_p, h, cfg.norm_eps)
+        return h + m2.mamba2_apply(m_p, hn, cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state,
+                                   cfg.ssm_groups, chunk=cfg.ssm_chunk)
+
+    def shared_block(h):
         cb = torch.cat([h, emb], dim=-1)
         a = attn_mod.gqa_apply(shared["attn"], rmsnorm_apply(shared["ln1"], cb, cfg.norm_eps),
                                cfg.n_heads, cfg.n_kv_heads, d2 // cfg.n_heads,
                                rope_theta=cfg.rope_theta, block=cfg.attn_block)
-        h = _shared_mlp(shared, h + dense_apply(shared["down"], a), cfg)
+        return _shared_mlp(shared, h + dense_apply(shared["down"], a), cfg)
+
+    mamba_layer = tf.remat_if(cfg.remat, mamba_layer)
+    shared_block = tf.remat_if(cfg.remat, shared_block)
+    per_group = params["group_norms"]["scale"].shape[1]
+    h = x
+    # the (groups, per_group) layers in order, one unbind per leaf
+    for i, lp in enumerate(tf.unstack((params["group_norms"], params["groups"]), axes=2)):
+        h = mamba_layer(lp, h)
+        if (i + 1) % per_group == 0:
+            h = shared_block(h)
     return h
 
 
@@ -350,7 +361,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     frames = frames.to(torch.bfloat16)
     enc = frames + _sinusoid(frames.shape[1], cfg.d_model, frames.device).to(torch.bfloat16)
     enc = tf.scan_stack(params["enc_layers"], enc,
-                        lambda lp, h: tf.encoder_layer_apply(lp, h, cfg))
+                        lambda lp, h: tf.encoder_layer_apply(lp, h, cfg), remat=cfg.remat)
     return rmsnorm_apply(params["ln_enc"], enc, cfg.norm_eps)
 
 
@@ -358,13 +369,13 @@ def _forward_encdec(params, cfg: ModelConfig, batch) -> torch.Tensor:
     enc = encode(params, cfg, batch["frames"])
     x = embed_apply(params["embed"], batch["tokens"])
     x = tf.scan_stack(params["dec_layers"], x,
-                      lambda lp, h: tf.cross_decoder_layer_apply(lp, h, enc, cfg))
+                      lambda lp, h: tf.cross_decoder_layer_apply(lp, h, enc, cfg),
+                      remat=cfg.remat)
     return rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Mean next-token CE of ``forward``'s hidden states (its value; the
-    gradients are the training slice's)."""
+    """Mean next-token CE of ``forward``'s hidden states."""
     hidden = forward(params, cfg, batch)
     if cfg.frontend == "vision_stub":
         # loss over text positions only (patch prefix is unsupervised)

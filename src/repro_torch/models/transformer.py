@@ -3,11 +3,18 @@ whisper's encoder and cross-attending decoder layers (PyTorch port of
 ``repro.models.transformer``).
 
 Layer params are built per layer and stored stacked, with a leading layer
-axis, as the reference stores them; the stacks loop over that axis in
-Python with views (``a[i]``), copying nothing.  The reference's ``remat``
-(activation checkpointing) and ``constraint`` (a sharding constraint on the
-residual stream) are training and sharding concerns: this forward runs
-without them, and the training slice of the port honours ``cfg.remat``.
+axis, as the reference stores them.  A forward takes each stacked leaf's
+layers with one ``unbind(0)`` (:func:`unstack`), whose backward stacks the
+layers' gradients into one tensor of the stack's size; indexing ``a[i]``
+per layer would allocate a zero tensor of the whole stack in each layer's
+backward.  Decode takes single layers as views (:func:`layer`).
+
+``remat`` (the reference's ``jax.checkpoint`` around each layer) runs
+each layer under ``torch.utils.checkpoint`` (non-reentrant), which keeps
+only the layer's input and recomputes the rest in the backward; it applies
+only while autograd records (``torch.is_grad_enabled()``), so serving under
+``no_grad`` runs the plain loop.  The reference's ``constraint`` (a
+sharding constraint on the residual stream) waits for the sharding slice.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -26,13 +34,36 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     swiglu_apply,
     swiglu_init,
+    tree_leaves,
     tree_map,
+    tree_unflatten,
 )
 
 
 def layer(stacked: Any, i) -> Any:
     """Layer ``i`` of a stacked params or cache tree: views, no copies."""
     return tree_map(lambda a: a[i], stacked)
+
+
+def unstack(stacked: Any, axes: int = 1) -> list:
+    """The layers of a tree stacked on its ``axes`` leading axes, in order:
+    one ``unbind`` per leaf (see the module's docstring)."""
+    per_leaf = [a.flatten(0, axes - 1).unbind(0) for a in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, parts) for parts in zip(*per_leaf)]
+
+
+def remat_if(remat: bool, fn: Callable) -> Callable:
+    """``fn`` under activation checkpointing when ``remat`` is set, autograd
+    records and an argument needs a gradient; else ``fn``."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+
+    def checkpointed(*args):
+        if not any(isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(args)):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return checkpointed
 
 
 # -- single decoder layer -----------------------------------------------------
@@ -120,7 +151,7 @@ def stacked_init(gen: torch.Generator, n_layers: int,
                                          device=a.device), first)
 
     def fill(i, one):
-        for dst, src in zip(_leaves(out), _leaves(one)):
+        for dst, src in zip(tree_leaves(out), tree_leaves(one)):
             dst[i].copy_(src)
 
     fill(0, first)
@@ -130,20 +161,17 @@ def stacked_init(gen: torch.Generator, n_layers: int,
     return out
 
 
-def _leaves(tree: Any) -> list[torch.Tensor]:
-    found = []
-    tree_map(found.append, tree)
-    return found
-
-
 def scan_stack(
     layer_params: Params,
     x: torch.Tensor,
     apply_one: Callable[[Params, torch.Tensor], torch.Tensor],
+    remat: bool = False,
 ) -> torch.Tensor:
-    """``apply_one`` over the leading layer axis of ``layer_params``."""
-    for i in range(_leaves(layer_params)[0].shape[0]):
-        x = apply_one(layer(layer_params, i), x)
+    """``apply_one`` over the leading layer axis of ``layer_params``, each
+    layer under :func:`remat_if`."""
+    f = remat_if(remat, apply_one)
+    for lp in unstack(layer_params):
+        x = f(lp, x)
     return x
 
 
@@ -154,7 +182,7 @@ def scan_stack_decode(
     cur_len,
     apply_one: Callable,           # (lp, x, cache_layer, cur_len) -> (x, cache')
 ) -> tuple[torch.Tensor, Any]:
-    for i in range(_leaves(layer_params)[0].shape[0]):
+    for i in range(tree_leaves(layer_params)[0].shape[0]):
         x, _ = apply_one(layer(layer_params, i), x, layer(cache, i), cur_len)
     return x, cache
 

@@ -9,8 +9,9 @@
 (d) without a GPU, the entry points (the data plane's, ``ops.rs_encode_mxu``,
     ``ops.flash_attention``, the layers' tensor makers ``rope_freqs``,
     ``rmsnorm_init``, ``layernorm_init``, the model's ``init_params`` and
-    ``init_cache``, and serving through ``launch.serve``) raise unless asked
-    for the CPU, and never quietly compute there; the CPU path never builds a
+    ``init_cache``, serving through ``launch.serve``, the training data
+    pipeline and ``launch.train``) raise unless asked for the CPU, and never
+    quietly compute there; the CPU path never builds a
     kernel.
 """
 
@@ -91,6 +92,20 @@ MODEL_AND_SERVING = [
     "launch/serve.py",
 ]
 
+#: the training runtime (ported), which the AST scan must cover too
+TRAINING = [
+    "optim/__init__.py",
+    "optim/adamw.py",
+    "optim/schedule.py",
+    "optim/compression.py",
+    "data/__init__.py",
+    "data/pipeline.py",
+    "runtime/__init__.py",
+    "runtime/train_loop.py",
+    "launch/steps.py",
+    "launch/train.py",
+]
+
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -116,7 +131,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_ast_scan_covers_the_model_stack_and_the_serving_path():
     scanned = {path.relative_to(PORT).as_posix() for path in _port_files()[:-1]}
-    assert set(MODEL_AND_SERVING) | {"configs/base.py", "configs/registry.py"} <= scanned
+    assert set(MODEL_AND_SERVING) | set(TRAINING) | {"configs/base.py",
+                                                     "configs/registry.py"} <= scanned
 
 
 def test_ast_scan_tells_repro_torch_from_repro(tmp_path):
@@ -142,6 +158,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.configs, repro_torch.models.model, repro_torch.models.moe\n"
         "import repro_torch.models.mamba2, repro_torch.models.xlstm\n"
         "import repro_torch.runtime.serve_loop, repro_torch.launch.serve\n"
+        "import repro_torch.optim, repro_torch.optim.adamw, repro_torch.optim.schedule\n"
+        "import repro_torch.optim.compression, repro_torch.data, repro_torch.data.pipeline\n"
+        "import repro_torch.runtime, repro_torch.runtime.train_loop\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -225,6 +245,13 @@ def test_entry_points_without_gpu_raise_unless_asked_for_cpu(no_gpu, plain_forbi
         init_cache(cfg, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen1.5-4b", "--smoke", "--requests", "2"])
+    from repro_torch.data import DataPipeline, PipelineConfig, SyntheticSource
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataPipeline(SyntheticSource(64), PipelineConfig(batch=1, seq=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen1.5-4b", "--smoke", "--steps", "1"])
 
 
 def test_bulk_verifier_without_gpu_raises_unless_asked_for_cpu(no_gpu):
