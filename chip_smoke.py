@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port: the erasure-coded data plane, the
-attention layer, the checkpoint plane, the model serving path and the
-training runtime.
+attention layer, the checkpoint plane, the model serving path, the
+training runtime and the sharded steps on a device mesh.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -115,7 +115,29 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    finite, its gradients with remat equal to those without (dbrx is left
    out: ``TRAIN_LEFT_OUT``).  (d) ``launch.train.main`` with the reference's
    documented ``--smoke`` command: one restart, finite losses.
-8. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
+8. Training and prefill on a device mesh, with every launch counter set
+   to 0 again.  (c) First, on the host's CPU, a 4-rank gloo world
+   (spawned, one thread a rank) at smoke widths with every product in fp32:
+   the sharded train step of yi, deepseek-v2 (expert-parallel MoE) and
+   zamba2 on meshes (2, 2) and (4, 1) against the one-device step (loss,
+   grad norm, every leaf of params and both moments; ``MESH_FP32``, the
+   MoE family ``MESH_MOE``), every leaf left on its rule's placements; the
+   prefill on (1, 4), a context-parallel split of the sequence, against
+   the one-device prefill; and ``elastic.shrink`` from 4 ranks to 2 after
+   a step: every value kept, bit for bit, and the next step equal to a
+   2-rank step from the same state.  (a) Then a one-rank NCCL world on the
+   card and a (1, 1) mesh: phase 7a's yi-9b cut (8 layers, B=1, S=4096)
+   from the same params and moments, the sharded train step against the
+   one-device step under deterministic algorithms, bit for bit (loss,
+   grad norm, every leaf), its ms beside the one-device step's; and the
+   sharded prefill (one flash launch a layer) against the one-device
+   prefill, bit for bit.  (b) The flash kernel as a 4-rank
+   context-parallel prefill launches it: yi-9b's B=1 S=32768 attention
+   (bf16, the tensor-core body) and a 4096-row fp32 case (the SIMT body),
+   q cut in 4 row blocks, each launched against the whole K/V at its
+   offset; the blocks joined equal the unsplit launch bit for bit, and
+   each block its plain version with ``q_offset`` (``SAME_ARITHMETIC``).
+9. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
    main path, error, times, bound) and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -1245,10 +1267,10 @@ def blockwise_entry(block: int, drop_causal_at: int | None = None):
 
     calls = []
 
-    def entry(q, k, v, causal=True):
+    def entry(q, k, v, causal=True, q_offset=0):
         calls.append(1)
         return blockwise_attention(q, k, v, causal and len(calls) - 1 != drop_causal_at,
-                                   block, 0)
+                                   block, q_offset)
 
     return entry
 
@@ -2148,6 +2170,483 @@ def drive_training(dev, counters) -> dict:
     return res
 
 
+# -- phase 8: training and prefill on a device mesh ----------------------------------------
+
+#: 8c: the host CPU's gloo world: its ranks, the smoke archs it trains, the
+#: batch, and the optimizer's step count before the compared step (lr > 0)
+MESH_WORLD = 4
+MESH_ARCHS = ("yi-9b", "deepseek-v2-lite-16b", "zamba2-2.7b")
+MESH_SHAPES = {"2x2": (2, 2), "4x1": (4, 1)}
+MESH_BATCH, MESH_SEQ = 4, 64
+MESH_START_STEP = 20
+#: every product in fp32: the sharded step sums the same fp32 terms in
+#: another order (the CPU tests read at most 6e-6 a leaf)
+MESH_FP32 = 1e-5
+#: an MoE layer's experts run bf16 einsums whatever the switch: a one-ulp
+#: flip of an input moves their gradients by about 2e-3 (the CPU tests'
+#: limit, test_torch_grads.BF16_GRAD)
+MESH_MOE = 5e-2
+#: 8b: the context-parallel split of the flash kernel: (case, B, S, H, Hkv,
+#: D, Dv, dtype), q cut in CP_SPLIT row blocks
+CP_SPLIT = 4
+CP_CASES = [("yi-9b prefill_32k", 1, 32768, 32, 4, 128, 128, "bfloat16"),
+            ("yi-9b fp32", 1, 4096, 32, 4, 128, 128, "float32")]
+CP_RUNS = 5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_cfg(name: str):
+    """A smoke config for 8c: remat on, and an MoE capacity that drops
+    nothing (per-rank routing then agrees with per-row routing)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[name].smoke, remat=True)
+    return dataclasses.replace(cfg, capacity_factor=8.0) if cfg.moe_experts else cfg
+
+
+def arch_shape(cfg, kind: str, b: int, s: int):
+    """(ArchConfig, ShapeConfig) of one step of ``cfg`` at (b, s)."""
+    from repro_torch.configs.base import ArchConfig, ShapeConfig
+
+    return ArchConfig(model=cfg, smoke=cfg), ShapeConfig(f"{kind}_{b}x{s}", kind, s, b)
+
+
+def opt_at(params, step: int) -> dict:
+    """AdamW's zero moments for ``params`` (DTensors stay DTensors) at ``step``."""
+    from repro_torch.optim.adamw import init_opt_state
+
+    opt = init_opt_state(params)
+    opt["step"] = opt["step"] + step
+    return opt
+
+
+def clone_tree(tree):
+    from repro_torch.models.layers import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def shard_errors(got_tree, want_tree, ctx) -> dict:
+    """{path: [squared error, squared norm]} of the shards of ``got_tree``
+    (DTensors) this rank holds the counted copy of, against ``want_tree``'s
+    whole tensors cut the same way."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel import sharding as sh
+
+    wants = dict(sh.leaves_with_path(want_tree))
+    specs = dict(sh.leaves_with_path(sh.param_specs(got_tree, ctx.mesh)))
+    out = {}
+    for path, got in sh.leaves_with_path(got_tree):
+        if not ctx.owns(specs[path]):
+            continue
+        want = distribute_tensor(wants[path], got.device_mesh, got.placements,
+                                 src_data_rank=None).to_local()
+        g, w = got.to_local().double(), want.double()
+        out[path] = [float((g - w).square().sum()), float(w.square().sum())]
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, results) -> None:
+    """One rank of 8c's gloo world (see the module's docstring)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        with fp32_compute():
+            out = {"steps": mesh_steps(), "prefill": mesh_prefill(),
+                   "shrink": mesh_shrink(rank)}
+        results.put((rank, out))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_steps() -> dict:
+    """8c: each arch's sharded train step on each mesh against the one-device
+    step on the same params and batch."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.parallel import sharding as sh
+
+    meshes = {key: mesh_mod.make_debug_mesh(*shape, device_type="cpu")
+              for key, shape in MESH_SHAPES.items()}
+    cpu = torch.device("cpu")
+    out = {}
+    for name in MESH_ARCHS:
+        cfg = mesh_cfg(name)
+        arch, shape = arch_shape(cfg, "train", MESH_BATCH, MESH_SEQ)
+        params0 = init_params(cfg, seed=MODEL_SEED, device=cpu)
+        batch = train_batch(cfg, cpu, np.random.default_rng(MODEL_SEED), MESH_BATCH, MESH_SEQ)
+        want_p, want_o = clone_tree(params0), opt_at(params0, MESH_START_STEP)
+        want_p, want_o, want_m = steps.make_train_step(arch, shape)(want_p, want_o, batch)
+        for key, mesh in meshes.items():
+            params = sh.distribute_tree(clone_tree(params0), mesh)
+            got_p, got_o, got_m = steps.make_train_step(arch, shape, mesh)(
+                params, opt_at(params, MESH_START_STEP), batch)
+            resid, _, attn = steps.model_constraints(arch, shape, mesh)
+            specs = sh.param_specs(got_p, mesh)
+            out[f"{name} {key}"] = {
+                "loss": [float(got_m["loss"]), float(want_m["loss"])],
+                "grad_norm": [float(got_m["grad_norm"]), float(want_m["grad_norm"])],
+                "placed": all(t.placements == sh.placements(spec, mesh)
+                              for tree in (got_p, got_o["m"], got_o["v"])
+                              for (_, t), (_, spec) in zip(sh.leaves_with_path(tree),
+                                                           sh.leaves_with_path(specs))),
+                "moe_ep": "moe_ep" in (attn or {}),
+                "errors": {kind: shard_errors(got, want, resid.ctx) for kind, got, want in
+                           (("params", got_p, want_p), ("m", got_o["m"], want_o["m"]),
+                            ("v", got_o["v"], want_o["v"]))},
+            }
+    return out
+
+
+def mesh_prefill() -> dict:
+    """8c: the prefill on (1, 4): each rank a quarter of the sequence."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.parallel import sharding as sh
+
+    mesh = mesh_mod.make_debug_mesh(1, 4, device_type="cpu")
+    cpu = torch.device("cpu")
+    cfg = mesh_cfg(MAIN_ARCH)
+    arch, shape = arch_shape(cfg, "prefill", 2, MESH_SEQ)
+    params = init_params(cfg, seed=MODEL_SEED + 1, device=cpu)
+    batch = model_batch(cfg, cpu, np.random.default_rng(MODEL_SEED + 1), 2, MESH_SEQ)
+    want = steps.make_prefill_step(arch, shape)(params, batch)
+    got = steps.make_prefill_step(arch, shape, mesh)(sh.distribute_tree(params, mesh), batch)
+    return {"rel_err": float((got - want).norm() / want.norm()), "shape": list(got.shape)}
+
+
+def mesh_shrink(rank: int) -> dict:
+    """8c: a step on (2, 2), ``elastic.shrink`` to ranks 0 and 1, one more
+    step; against the same state distributed afresh on the survivors."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import elastic
+
+    cpu = torch.device("cpu")
+    cfg = mesh_cfg(MAIN_ARCH)
+    arch, shape = arch_shape(cfg, "train", MESH_BATCH, MESH_SEQ)
+    batch = train_batch(cfg, cpu, np.random.default_rng(MODEL_SEED + 2), MESH_BATCH, MESH_SEQ)
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    params = sh.distribute_tree(init_params(cfg, seed=MODEL_SEED + 2, device=cpu), mesh)
+    params, opt, _ = steps.make_train_step(arch, shape, mesh)(
+        params, opt_at(params, MESH_START_STEP), batch)
+    state = {"params": params, "m": opt["m"], "v": opt["v"]}
+    whole = tree_map(lambda t: t.full_tensor(), state)
+    moved, small = elastic.shrink(state, mesh, {2, 3})
+    if moved is None:
+        return {"evicted": True}
+    kept = all(torch.equal(a.full_tensor(), b) for a, b in
+               zip(*(tree_leaves(t) for t in (moved, whole))))
+    fresh = {key: sh.distribute_tree(clone_tree(whole[key]), small) for key in whole}
+    step = steps.make_train_step(arch, shape, small)
+    after = step(moved["params"], {"m": moved["m"], "v": moved["v"], "step": opt["step"]},
+                 batch)
+    again = step(fresh["params"], {"m": fresh["m"], "v": fresh["v"], "step": opt["step"]},
+                 batch)
+    equal = float(after[2]["loss"]) == float(again[2]["loss"]) and all(
+        torch.equal(a.to_local(), b.to_local()) for a, b in
+        zip(*(tree_leaves((x[0], x[1]["m"], x[1]["v"])) for x in (after, again))))
+    return {"evicted": False, "mesh": dict(zip(small.mesh_dim_names, small.shape)),
+            "kept": kept, "next_step_equal": equal}
+
+
+def mesh_world(failures: list) -> dict:
+    """8c: the gloo world on the host; the ranks' shard errors added up per
+    leaf.  The ranks are spawned where this process has used the card
+    (autograd's device threads do not survive a fork), and forked where it
+    has not (a rehearsal on the CPU: each rank then starts from this
+    process's modules as they stand)."""
+    import multiprocessing
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    method = "spawn" if torch.cuda.is_initialized() else "fork"
+    results = multiprocessing.get_context(method).SimpleQueue()
+    t0 = time.perf_counter()
+    procs = tmp.start_processes(mesh_rank, args=(MESH_WORLD, free_port(), results),
+                                nprocs=MESH_WORLD, join=False, start_method=method)
+    ranks: dict = {}
+    done = False
+    while not done:
+        done = procs.join(timeout=0.5)     # raises when a rank failed
+        while not results.empty():
+            rank, out = results.get()
+            ranks[rank] = out
+    check(len(ranks) == MESH_WORLD, f"8c: {len(ranks)} of {MESH_WORLD} ranks reported")
+    res = {"seconds": time.perf_counter() - t0, "world": MESH_WORLD, "steps": {}}
+    for case, first in ranks[0]["steps"].items():
+        moe = case.split()[0] == "deepseek-v2-lite-16b"
+        limit = MESH_MOE if moe else MESH_FP32
+        worst = {}
+        for kind in ("params", "m", "v"):
+            total: dict = {}
+            for r in ranks.values():
+                for path, (err, norm) in r["steps"][case]["errors"][kind].items():
+                    e, n = total.get(path, (0.0, 0.0))
+                    total[path] = (e + err, n + norm)
+            rel = {path: (e / n) ** 0.5 if n else e ** 0.5 for path, (e, n) in total.items()}
+            path = max(rel, key=rel.get)
+            worst[kind] = [path, rel[path]]
+        (loss, loss_want), (gn, gn_want) = first["loss"], first["grad_norm"]
+        row = {"loss": [loss, loss_want], "grad_norm": [gn, gn_want], "worst": worst,
+               "limit": limit, "moe_ep": first["moe_ep"],
+               "placed": all(r["steps"][case]["placed"] for r in ranks.values())}
+        res["steps"][case] = row
+        ok = (abs(loss - loss_want) <= MESH_FP32 * abs(loss_want)
+              and abs(gn - gn_want) <= limit * gn_want and row["placed"]
+              and all(err <= limit for _, err in worst.values())
+              and (row["moe_ep"] or not moe))
+        if not ok:
+            failures.append(f"8c sharded train step {case}: {row}")
+    res["prefill"] = ranks[0]["prefill"]
+    if any(r["prefill"]["rel_err"] > MESH_FP32 for r in ranks.values()):
+        failures.append(f"8c prefill on (1, 4): {[r['prefill'] for r in ranks.values()]}")
+    res["shrink"] = {rank: r["shrink"] for rank, r in ranks.items()}
+    survivors = [r["shrink"] for r in ranks.values() if not r["shrink"]["evicted"]]
+    if len(survivors) != 2 or not all(s["kept"] and s["next_step_equal"] for s in survivors):
+        failures.append(f"8c shrink 4 -> 2: {res['shrink']}")
+    return res
+
+
+def sharded_main_model(cfg, dev, counters, failures: list) -> dict:
+    """8a: a one-rank world on this device and a (1, 1) mesh: phase 7a's
+    model from the same params and moments, the sharded train step against
+    the one-device step, and the sharded prefill against the one-device
+    prefill, under deterministic algorithms, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.parallel import sharding as sh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    extra = {}
+    if dev.type == "cuda":     # the communicator is built for this card at once
+        extra["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, **extra)
+    try:
+        mesh = mesh_mod.make_debug_mesh(1, 1, device_type=dev.type)
+        arch, shape = arch_shape(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+        rng = np.random.default_rng(MODEL_SEED + 1)
+        batch = train_batch(cfg, dev, rng, TRAIN_BATCH, TRAIN_SEQ)
+        params = init_params(cfg, seed=MODEL_SEED, device=dev)
+        host = [t.to("cpu", copy=True) for t in tree_leaves(params)]
+        res = {"name": cfg.name, "layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+               "mesh": [1, 1], "backend": backend}
+        # the prefill first, on both (no gradient: the flash kernel)
+        prefill_arch, prefill_shape = arch_shape(cfg, "prefill", TRAIN_BATCH, TRAIN_SEQ)
+        tokens = {"tokens": batch["tokens"]}
+        want_logits = steps.make_prefill_step(prefill_arch, prefill_shape)(params, tokens)
+        flash = counters["flash_attention_fwd"]
+        before = flash.launches
+        sharded = sh.distribute_tree(params, mesh)
+        got_logits = steps.make_prefill_step(prefill_arch, prefill_shape, mesh)(sharded, tokens)
+        res["prefill_launches"] = flash.launches - before
+        res["prefill_bitwise"] = bool(torch.equal(got_logits, want_logits))
+        del sharded, got_logits, want_logits
+        # the train step, one-device then sharded, from the same start
+        step, times = steps.make_train_step(arch, shape), {}
+        opt = opt_at(params, MESH_START_STEP)
+        with deterministic() as ops_one:
+            params, opt, metrics = step(params, opt, batch)
+        want = (params, opt, {k: v.clone() for k, v in metrics.items()})
+        fresh = [t.to(dev) for t in host]
+        del host
+        sparams = sh.distribute_tree(tree_unflatten(params, fresh), mesh)
+        del fresh
+        sopt = opt_at(sparams, MESH_START_STEP)
+        sstep = steps.make_train_step(arch, shape, mesh)
+        with deterministic() as ops_mesh:
+            sparams, sopt, smetrics = sstep(sparams, sopt, batch)
+        pairs = list(zip(tree_leaves((sparams, sopt["m"], sopt["v"])),
+                         tree_leaves((want[0], want[1]["m"], want[1]["v"])), strict=True))
+        res["bitwise"] = (all(torch.equal(a.to_local(), b) for a, b in pairs)
+                          and all(torch.equal(smetrics[k], want[2][k])
+                                  for k in ("loss", "grad_norm", "lr")))
+        res["loss"] = [float(smetrics["loss"]), float(want[2]["loss"])]
+        res["nondeterministic_ops"] = sorted(set(ops_one) | set(ops_mesh))
+        if not res["bitwise"]:
+            res["worst_rel_err"] = max(
+                float((a.to_local().double() - b.double()).norm()
+                      / b.double().norm().clamp_min(1e-30)) for a, b in pairs)
+        del pairs, want
+        # timed: the one-device step and the sharded one, in turns
+        one = (tree_map(lambda t: t.to_local(), sparams),
+               {"m": tree_map(lambda t: t.to_local(), sopt["m"]),
+                "v": tree_map(lambda t: t.to_local(), sopt["v"]), "step": sopt["step"]})
+        for key, fn, state in (("one_device", step, one), ("mesh", sstep, (sparams, sopt))):
+            times[key] = []
+            p, o = state
+            for _ in range(1 + TRAIN_TIMED_STEPS):
+                start = time.perf_counter()
+                p, o, _ = fn(p, o, batch)
+                torch.cuda.synchronize()
+                times[key].append((time.perf_counter() - start) * 1e3)
+            res[f"{key}_step_ms"] = statistics.median(times[key][1:])
+        res["step_ms"] = times
+    finally:
+        dist.destroy_process_group()
+    if not res["prefill_bitwise"] or res["prefill_launches"] != cfg.n_layers:
+        failures.append(f"8a sharded prefill: bitwise {res['prefill_bitwise']}, "
+                        f"{res['prefill_launches']} flash launches for {cfg.n_layers} layers")
+    if not res["bitwise"]:
+        failures.append(f"8a sharded train step on (1, 1) differs from the one-device step: "
+                        f"{res}")
+    return res
+
+
+def context_parallel_flash(dev, gen, case, flash, failures: list) -> dict:
+    """8b: one attention of ``case`` as CP_SPLIT ranks of a context-parallel
+    prefill launch it (q row block r at offset r * S / CP_SPLIT against the
+    whole K/V; counted), then held against the unsplit launch, bit for
+    bit, and each block against its plain version with ``q_offset``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    name, b, s, h, hkv, d, dv, dtype = case
+    dt = getattr(torch, dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    q, k, v = draw((b, s, h, d)), draw((b, s, hkv, d)), draw((b, s, hkv, dv))
+    rows = s // CP_SPLIT
+    blocks = [(q[:, r * rows:(r + 1) * rows], r * rows) for r in range(CP_SPLIT)]
+    before = (flash.launches, flash.offset_launches)
+    parts = [fa.flash_attention_fwd(qb, k, v, True, off) for qb, off in blocks]
+    path = (flash.launches - before[0], flash.offset_launches - before[1])
+    # the comparisons (their launches are not the path's)
+    whole = fa.flash_attention_fwd(q, k, v, True)
+    bitwise = bool(torch.equal(torch.cat(parts, dim=1), whole))
+    tol = SAME_ARITHMETIC[dtype]
+    closes = [closeness(part, fa.flash_attention_fwd_plain(qb, k, v, True, off), tol)
+              for part, (qb, off) in zip(parts, blocks)]
+    del whole
+    last, off = blocks[-1]
+    pairs = b * h * sum(off + i + 1 for i in range(rows))
+    flops = 2 * pairs * (d + dv)
+    nbytes = q.element_size() * b * (rows * h * d + s * hkv * (d + dv) + rows * h * dv)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    # the yardstick: one PyTorch call with the offset causal mask, the K/V
+    # heads repeated (a boolean mask and grouped heads together would leave
+    # it the math kernel's (B, H, Sq, Skv) scores)
+    qt, kt, vt = (x.transpose(1, 2) for x in (last, k.repeat_interleave(h // hkv, dim=2),
+                                               v.repeat_interleave(h // hkv, dim=2)))
+    mask = (torch.arange(s, device=dev)[None, :]
+            <= off + torch.arange(rows, device=dev)[:, None])
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    res = {"case": name, "dtype": dtype, "split": CP_SPLIT, "offsets": [o for _, o in blocks],
+           "launches": path[0], "offset_launches": path[1],
+           "shape": f"q {(b, rows, h, d)} at offset {off}, k {(b, s, hkv, d)}",
+           "bitwise_vs_unsplit": bitwise,
+           "max_abs_err": max(c[0] for c in closes),
+           "tolerance_share": max(c[1] for c in closes),
+           "rel_rms_err": max(c[2] for c in closes), "tolerance": tol,
+           "ms": median_ms(lambda: fa.flash_attention_fwd(last, k, v, True, off), CP_RUNS),
+           "plain_ms": median_ms(lambda: fa.flash_attention_fwd_plain(last, k, v, True, off), 1),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
+           "bytes": nbytes}
+    try:
+        lib_out = library()
+    except RuntimeError as exc:
+        res["library_ms"] = None
+        res["library_note"] = f"scaled_dot_product_attention refused: {str(exc)[:160]}"
+    else:
+        res["library_max_abs_err"] = float((lib_out.transpose(1, 2).float()
+                                            - parts[-1].float()).abs().max())
+        del lib_out
+        res["library_ms"] = median_ms(library, CP_RUNS)
+    if not bitwise or res["tolerance_share"] > 1.0 or res["rel_rms_err"] > tol["rel_rms"]:
+        failures.append(f"8b flash with q_offset {name}: {res}")
+    del q, k, v, parts, blocks, last, qt, kt, vt, mask
+    return res
+
+
+def drive_mesh(dev, counters) -> dict:
+    """Phase 8 (see the module's docstring): 8c on the host first (its
+    ranks are forked before this process joins a process group), then 8a
+    and 8b on the card; fails after the last if any check failed."""
+    import torch
+
+    failures: list[str] = []
+    res = {"world": mesh_world(failures)}
+    for case, row in res["world"]["steps"].items():
+        print(f"  8c {case}: loss {row['loss']}, grad norm {row['grad_norm']}, worst leaf "
+              f"{row['worst']} (limit {row['limit']}), placed {row['placed']}, moe_ep "
+              f"{row['moe_ep']}", flush=True)
+    print(f"  8c prefill (1, 4): {res['world']['prefill']}; shrink 4 -> 2: "
+          f"{res['world']['shrink']}; {res['world']['seconds']:.1f} s", flush=True)
+    main_cfg, _, _ = training_configs()
+    res["main"] = sharded_main_model(main_cfg, dev, counters, failures)
+    main = res["main"]
+    print(f"  8a {main['name']} ({main['layers']} layers) on a (1, 1) {main['backend']} mesh, "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ}: train step bit for bit {main['bitwise']} (loss "
+          f"{main['loss']}), step {main['mesh_step_ms']:.3f} ms sharded, "
+          f"{main['one_device_step_ms']:.3f} ms one-device; prefill bit for bit "
+          f"{main['prefill_bitwise']} ({main['prefill_launches']} flash launches); "
+          f"nondeterministic ops {main['nondeterministic_ops']}", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    flash = counters["flash_attention_fwd"]
+    res["context_parallel"] = [context_parallel_flash(dev, gen, case, flash, failures)
+                               for case in CP_CASES]
+    # the path's launches: 8a's sharded prefill and 8b's splits (not the
+    # launches that they are compared with)
+    res["launches"] = main["prefill_launches"] + sum(
+        row["launches"] for row in res["context_parallel"])
+    res["offset_launches"] = sum(row["offset_launches"] for row in res["context_parallel"])
+    for row in res["context_parallel"]:
+        lib = "refused" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
+        print(f"  8b flash {row['case']} {row['dtype']} split {row['split']} at "
+              f"{row['offsets']}: joined = unsplit bit for bit {row['bitwise_vs_unsplit']}; "
+              f"vs plain max |err| {row['max_abs_err']:.3g} ({row['tolerance_share']:.3g} of "
+              f"the allowance), relative RMS {row['rel_rms_err']:.3g}; last block "
+              f"{row['shape']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms by {row['bound_by']}, library {lib})", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    check(not failures, "phase 8 failed:\n  " + "\n  ".join(failures))
+    return res
+
+
 def count_launches(rows: list[dict], counters: dict, path: str) -> None:
     """Set each row's launches from its counter and fail on a kernel the
     path did not launch."""
@@ -2290,11 +2789,38 @@ def main() -> int:
           f"{runtime['restore_ec_s']:.3f}), step {runtime['step_ms']:.3f} ms", flush=True)
     phase_done("7")
 
+    phase("8", "training and prefill on a device mesh")
+    for fn in counters.values():
+        fn.launches = 0
+    fa.flash_attention_fwd.offset_launches = 0
+    mesh = drive_mesh(dev, counters)
+    torch.cuda.synchronize()
+    flash_row["mesh_launches"] = mesh["launches"]
+    check(flash_row["mesh_launches"] > 0,
+          f"{flash_row['name']} was not launched on the device-mesh path")
+    cp = mesh["context_parallel"][0]
+    offset_row = {
+        "name": "flash_attention_fwd (q_offset)", "route": "cuda",
+        "source": flash_row["source"], "replaces": flash_row["replaces"],
+        "launches": mesh["offset_launches"],
+        **{key: cp[key] for key in ("max_abs_err", "tolerance", "tolerance_share", "rel_rms_err",
+                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "shape")},
+        "cases": mesh["context_parallel"],
+    }
+    check(offset_row["launches"] > 0, "flash_attention_fwd was not launched with a q_offset "
+                                      "on the device-mesh path")
+    print(f"  launches on the device-mesh path: {flash_row['name']} "
+          f"{flash_row['mesh_launches']} (8a's sharded prefill and 8b's split), of them "
+          f"{offset_row['launches']} with a q_offset", flush=True)
+    phase_done("8")
+
     print(json.dumps({"cluster": cluster, "attention": attention, "checkpoint": checkpoint,
-                      "models": models, "training": training, "flash_build": flash_build,
-                      "gf_build": gf_build, "copy": copy, "phase_seconds": seconds}))
+                      "models": models, "training": training, "mesh": mesh,
+                      "flash_build": flash_build, "gf_build": gf_build, "copy": copy,
+                      "phase_seconds": seconds}))
     print(card)
-    print(json.dumps({"kernels": dataplane_rows + attention_rows}))
+    print(json.dumps({"kernels": dataplane_rows + attention_rows + [offset_row]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -11,9 +11,13 @@ The pipeline is *stateless-resumable*: batch ``i`` is a pure function of
 (seed, i), so checkpoint/restart only needs the step counter — no iterator
 state in checkpoints.
 
-A background thread makes the batches and moves them onto ``device`` (the
-reference's ``shardings`` place them on a mesh; one device here).  The copy
-is a plain synchronous ``Tensor.to``: a batch is a few KB of int32 tokens.
+A background thread makes the batches and moves them onto ``device``.  The
+copy is a plain synchronous ``Tensor.to``: a batch is a few KB of int32
+tokens.  With ``shardings`` (``{"tokens": NamedSharding, "labels": ...}``
+on a ``DeviceMesh``, as ``launch.steps.batch_shardings`` gives them) each
+batch is a DTensor per key, placed by its spec as the reference's sharded
+``device_put`` places it: every rank makes the same whole batch from
+(seed, i) and keeps its rows, so nothing is sent.
 """
 
 from __future__ import annotations
@@ -76,10 +80,11 @@ class DataPipeline:
     ``__next__``."""
 
     def __init__(self, source, cfg: PipelineConfig,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE, shardings: dict | None = None):
         self.source = source
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.shardings = shardings
         self._start(cfg.start_step)
 
     def _start(self, step: int) -> None:
@@ -94,7 +99,14 @@ class DataPipeline:
 
     def _make(self, index: int) -> dict:
         raw = torch.from_numpy(self.source.batch(index, self.cfg.batch, self.cfg.seq))
-        return {"tokens": raw[:, :-1].to(self.device), "labels": raw[:, 1:].to(self.device)}
+        batch = {"tokens": raw[:, :-1].to(self.device), "labels": raw[:, 1:].to(self.device)}
+        if self.shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            batch = {k: distribute_tensor(v.contiguous(), self.shardings[k].mesh,
+                                          self.shardings[k].placements, src_data_rank=None)
+                     for k, v in batch.items()}
+        return batch
 
     def _worker(self, q: queue.Queue, stop: threading.Event, i: int) -> None:
         while not stop.is_set():

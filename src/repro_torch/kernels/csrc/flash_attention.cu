@@ -3,13 +3,14 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
 //   flash_attention_fwd  <- flash_attention_fwd (_flash_kernel)
 //
-// Computes, for q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv), bf16 or fp32:
+// Computes, for q (B,Sq,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv), bf16 or fp32:
 //   out[b,i,h,:] = softmax_j(scale * q[b,i,h,:] . k[b,j,h/rep,:]) . v[b,j,h/rep,:]
 // with rep = H / Hkv (grouped-query heads, KV never repeated in memory), an
-// optional causal mask (j <= i), fp32 accumulation, the scale applied in
-// fp32, and p rounded to v's dtype before P.V (the row sum l taken from the
-// unrounded p), all as the TPU kernel does.  The output has q's dtype and
-// is (B,S,H,Dv), contiguous.
+// optional causal mask (j <= i + q_offset: query row i sits at position
+// q_offset + i of the keys, as a context-parallel rank's slice of the rows
+// does), fp32 accumulation, the scale applied in fp32, and p rounded to v's
+// dtype before P.V (the row sum l taken from the unrounded p), all as the
+// TPU kernel does.  The output has q's dtype and is (B,Sq,H,Dv), contiguous.
 //
 // Bound on this card: operations.  A causal pass does B*H*S*(S+1)/2 * 2*(D+Dv)
 // flops over (B*S*(H*D + Hkv*(D+Dv)) + B*S*H*Dv) * sizeof(T) bytes, between
@@ -26,14 +27,16 @@
 //    (neighbouring blocks then share their KV heads' tiles in L2).  The
 //    block walks 128-key KV tiles in ascending order (the plain version's
 //    order, so the running max, and with it every rounded p, is the same);
-//    with a causal mask it stops at the diagonal tile.
+//    with a causal mask it stops at the tile holding key q0 + q_offset + 127
+//    (the diagonal tile at q_offset 0).  A q tile's work grows with its
+//    index at any offset, so the heaviest-first order stands.
 //  * Warp specialisation: warpgroup 0 is the producer (setmaxnreg 24), whose
 //    one thread loads Q once and K/V tiles into a ring of 2 stages by TMA,
 //    with full (TMA bytes) and empty (256 consumer-thread arrivals)
 //    mbarriers per stage.  Warpgroups 1 and 2 are consumers (setmaxnreg
 //    240), each owning 64 q rows: S = Q.K^T by wgmma m64n128k16 with Q and
-//    K K-major in shared memory; scale, mask (only on the diagonal tile and
-//    the tile holding S), online softmax in fp32 registers; p rounded to
+//    K K-major in shared memory; scale, mask (only on the tiles that cross
+//    the diagonal and the tile holding Skv), online softmax in fp32 registers; p rounded to
 //    bf16 in registers, where the accumulator fragment of S is already the
 //    A fragment of P.V; O += P.V by wgmma m64n{Dv}k16 with V read MN-major
 //    from its row-major tile (the transpose-B bit, no transpose pass).
@@ -42,7 +45,10 @@
 //    and so every bit of the output, is that of doing them in turn).
 //  * The (B,S,H,D) layout is read through strides by 4-D tensor maps (one
 //    per operand and column chunk) encoded on the host per call: rows at or
-//    past S load as zeros, keys at or past S score -1e30.  Rows are cut in
+//    past Sq (Skv) load as zeros, keys at or past Skv score -1e30.  A row
+//    that sees none of a tile's keys scores all of them -1e30, which leaves
+//    its max, sum and output bit for bit as they were (the plain version
+//    skips that tile for that row).  Rows are cut in
 //    64-column chunks with the 128-byte swizzle and, for a width of 80 or
 //    160, one or two 16-column chunks with the 32-byte swizzle.  TMA needs
 //    16-byte aligned base addresses and strides; the Python wrapper copies
@@ -146,8 +152,8 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
              const __grid_constant__ Maps mv, Perm pq, Perm pk, Perm pv,
-             __nv_bfloat16* __restrict__ o, int S, int H, int rep, int nq, int bh_count,
-             float scale, int causal) {
+             __nv_bfloat16* __restrict__ o, int Sq, int Skv, int q_offset, int H, int rep,
+             int nq, int bh_count, float scale, int causal) {
   using TQ = Tile<D>;
   using TV = Tile<DV>;
   extern __shared__ uint8_t smem_raw[];
@@ -163,8 +169,8 @@ flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
   const int qt = nq - 1 - bid / bh_count;     // heaviest causal q tiles first
   const int h = bh % H, b = bh / H;
   const int q0 = qt * kBQ;
-  const int nk = (S + kBK - 1) / kBK;
-  const int last = causal ? min(nk - 1, qt) : nk - 1;
+  const int nk = (Skv + kBK - 1) / kBK;
+  const int last = causal ? min(nk - 1, (q0 + q_offset + kBQ - 1) / kBK) : nk - 1;
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -251,15 +257,16 @@ flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
     // new max and row sum, and each row's rescaling factor into alpha
     const auto softmax = [&](int t, float* alpha) {
       const int k0 = t * kBK;
-      // scale in fp32; mask keys past S and, on the diagonal tile, keys after the row
-      const bool edge = k0 + kBK > S || (causal && t == qt);
+      // scale in fp32; mask keys past Skv and, on a tile crossing the diagonal,
+      // keys after the row's position
+      const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0 + q_offset);
 #pragma unroll
       for (int e = 0; e < 64; ++e) {
         float x = s[e] * scale;
         if (edge) {
           const int key = k0 + 8 * (e / 4) + col0 + (e % 2);
           const int row = row0 + 8 * ((e / 2) % 2);
-          if (key >= S || (causal && key > row)) x = kNegInf;
+          if (key >= Skv || (causal && key > row + q_offset)) x = kNegInf;
         }
         s[e] = x;
       }
@@ -327,13 +334,13 @@ flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
     fence_regs<32>(p);
     mbar_arrive(empty + 8 * (last % kStages));
 
-    // out = acc / max(l, 1e-30) in fp32, rounded to bf16; rows at or past S are not stored
+    // out = acc / max(l, 1e-30) in fp32, rounded to bf16; rows at or past Sq are not stored
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + 8 * i;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       const float ll = fmaxf(l[i], 1e-30f);
-      __nv_bfloat16* orow = o + ((int64_t(b) * S + row) * H + h) * DV + col0;
+      __nv_bfloat16* orow = o + ((int64_t(b) * Sq + row) * H + h) * DV + col0;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
@@ -413,17 +420,23 @@ template <int D, int DV> constexpr size_t smem_bytes() {
   return 1024 + (1 + kStages) * Tile<D>::kBytes + kStages * Tile<DV>::kBytes + 64;
 }
 
+// the shape of one call: q (B,Sq,H,D), k/v (B,Skv,Hkv,D/Dv), q rows at q_offset
+struct Shape {
+  int64_t B, Sq, Skv, H, Hkv, q_offset;
+};
+
 template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t S,
-                   int64_t H, int64_t Hkv, const int64_t* st, bool causal, cudaStream_t stream) {
-  const int64_t nq = (S + kBQ - 1) / kBQ;
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                   const int64_t* st, bool causal, cudaStream_t stream) {
+  const int64_t B = sh.B, H = sh.H, Hkv = sh.Hkv;
+  const int64_t nq = (sh.Sq + kBQ - 1) / kBQ;
   const int64_t blocks = B * H * nq;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   Maps mq, mk, mv;
   Perm pq, pk, pv;
-  if (!encode({q, D, H, S, B, st[0], st[1], st[2]}, &mq, &pq) ||
-      !encode({k, D, Hkv, S, B, st[3], st[4], st[5]}, &mk, &pk) ||
-      !encode({v, DV, Hkv, S, B, st[6], st[7], st[8]}, &mv, &pv))
+  if (!encode({q, D, H, sh.Sq, B, st[0], st[1], st[2]}, &mq, &pq) ||
+      !encode({k, D, Hkv, sh.Skv, B, st[3], st[4], st[5]}, &mk, &pk) ||
+      !encode({v, DV, Hkv, sh.Skv, B, st[6], st[7], st[8]}, &mv, &pv))
     return cudaErrorInvalidValue;      // no driver entry point, or a map TMA refuses
   const size_t smem = smem_bytes<D, DV>();
   auto kernel = flash_fwd_tc<D, DV>;
@@ -432,34 +445,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
   if (err != cudaSuccess) return err;
   const float scale = float(1.0 / std::sqrt(double(D)));
   kernel<<<unsigned(blocks), kThreads, smem, stream>>>(
-      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), int(S), int(H), int(H / Hkv),
-      int(nq), int(B * H), scale, causal ? 1 : 0);
+      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), int(sh.Sq), int(sh.Skv),
+      int(sh.q_offset), int(H), int(H / Hkv), int(nq), int(B * H), scale, causal ? 1 : 0);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, int64_t B,
-                        int64_t S, int64_t H, int64_t Hkv, int64_t DV, const int64_t* st,
-                        bool causal, cudaStream_t stream) {
+cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                        int64_t DV, const int64_t* st, bool causal, cudaStream_t stream) {
   switch (DV) {
-    case 64: return launch<D, 64>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
-    case 80: return launch<D, 80>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
-    case 128: return launch<D, 128>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
+    case 64: return launch<D, 64>(q, k, v, o, sh, st, causal, stream);
+    case 80: return launch<D, 80>(q, k, v, o, sh, st, causal, stream);
+    case 128: return launch<D, 128>(q, k, v, o, sh, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64_t B,
-                     int64_t S, int64_t H, int64_t Hkv, int64_t D, int64_t DV,
-                     const int64_t* st, bool causal, cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                     int64_t D, int64_t DV, const int64_t* st, bool causal, cudaStream_t stream) {
   switch (D) {
-    case 64: return dispatch_dv<64>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
-    case 80: return dispatch_dv<80>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
-    case 128: return dispatch_dv<128>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
+    case 64: return dispatch_dv<64>(q, k, v, o, sh, DV, st, causal, stream);
+    case 80: return dispatch_dv<80>(q, k, v, o, sh, DV, st, causal, stream);
+    case 128: return dispatch_dv<128>(q, k, v, o, sh, DV, st, causal, stream);
     case 160:   // zamba2's shared block: (160, 160) only
       if (DV != 160) return cudaErrorInvalidValue;
-      return launch<160, 160>(q, k, v, o, B, S, H, Hkv, st, causal, stream);
-    case 192: return dispatch_dv<192>(q, k, v, o, B, S, H, Hkv, DV, st, causal, stream);
+      return launch<160, 160>(q, k, v, o, sh, st, causal, stream);
+    case 192: return dispatch_dv<192>(q, k, v, o, sh, DV, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -482,7 +493,8 @@ __device__ __forceinline__ float lane(const float4& v, int u) {
 }
 
 // dst[r * ld + c] = scale * src[(s0 + r) * row_stride + c] for the 64
-// rows r of a tile and the `width` columns c; rows at or past S are zero.
+// rows r of a tile and the `width` columns c; rows at or past S (the
+// operand's own length) are zero.
 __device__ void load_tile(float* dst, int ld, const float* __restrict__ src, int64_t row_stride,
                           int s0, int S, int width, float scale) {
   const int total = kBK * width;
@@ -498,8 +510,8 @@ __device__ void load_tile(float* dst, int ld, const float* __restrict__ src, int
 template <int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S, int H, int Hkv,
-                 int D, int nq,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
+                 int q_offset, int H, int Hkv, int D, int nq,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -528,7 +540,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qh = q + b * q_sb + int64_t(h) * q_sh;
   const float* kh = k + b * k_sb + int64_t(hk) * k_sh;
   const float* vh = v + b * v_sb + int64_t(hk) * v_sh;
-  load_tile(sQ, ldq, qh, q_ss, q0, S, D, scale);
+  load_tile(sQ, ldq, qh, q_ss, q0, Sq, D, scale);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -539,12 +551,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int nk = (S + kBK - 1) / kBK;
-  const int last = causal ? min(nk - 1, (q0 + kBQ - 1) / kBK) : nk - 1;
+  const int nk = (Skv + kBK - 1) / kBK;
+  const int last = causal ? min(nk - 1, (q0 + q_offset + kBQ - 1) / kBK) : nk - 1;
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                      // the last tile's P.V is done with sKV, sP
-    load_tile(sKV, ldkv, kh, k_ss, k0, S, D, 1.f);
+    load_tile(sKV, ldkv, kh, k_ss, k0, Skv, D, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -571,13 +583,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 
-    // keys at or past S, and with a causal mask keys after the query, score -1e30
+    // keys at or past Skv, and with a causal mask keys after the query's
+    // position (q_offset + its row), score -1e30
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        if (kp >= S || (causal && kp > q0 + 4 * ty + i)) s[i][j] = kNegInf;
+        if (kp >= Skv || (causal && kp > q0 + 4 * ty + i + q_offset)) s[i][j] = kNegInf;
       }
 
     // online softmax; the 16 lanes sharing a row are one half-warp, and the
@@ -604,7 +617,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[i] = m_new;
     }
     __syncthreads();                      // every thread is done reading K
-    load_tile(sKV, ldkv, vh, v_ss, k0, S, DV, 1.f);
+    load_tile(sKV, ldkv, vh, v_ss, k0, Skv, DV, 1.f);
     __syncthreads();
 
     for (int kk = 0; kk < kBK; kk += 4) {
@@ -629,19 +642,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * ty + i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     const float ll = fmaxf(l[i], 1e-30f);
-    float* orow = o + (b * S + qp) * o_ss + int64_t(h) * DV;
+    float* orow = o + (b * Sq + qp) * o_ss + int64_t(h) * DV;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[i][j] / ll;
   }
 }
 
 template <int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t S,
-                   int64_t H, int64_t Hkv, int64_t D, const int64_t* strides, bool causal,
-                   cudaStream_t stream) {
-  const int64_t nq = (S + kBQ - 1) / kBQ;
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const tc::Shape& sh,
+                   int64_t D, const int64_t* strides, bool causal, cudaStream_t stream) {
+  const int64_t B = sh.B, H = sh.H, Hkv = sh.Hkv;
+  const int64_t nq = (sh.Sq + kBQ - 1) / kBQ;
   const int64_t blocks = B * H * nq;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const int64_t ldq = D + kPad, ldkv = (D > DV ? D : DV) + kPad, ldp = kBK + kPad;
@@ -653,21 +666,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
   const float scale = float(1.0 / std::sqrt(double(D)));
   kernel<<<unsigned(blocks), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), int(S), int(H), int(Hkv), int(D), int(nq),
+      static_cast<float*>(o), int(sh.Sq), int(sh.Skv), int(sh.q_offset), int(H), int(Hkv),
+      int(D), int(nq),
       strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
       strides[6], strides[7], strides[8], scale, causal);
   return cudaGetLastError();
 }
 
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64_t B,
-                     int64_t S, int64_t H, int64_t Hkv, int64_t D, int64_t DV,
-                     const int64_t* strides, bool causal, cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const tc::Shape& sh,
+                     int64_t D, int64_t DV, const int64_t* strides, bool causal,
+                     cudaStream_t stream) {
   switch (DV) {
-    case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
-    case 80: return launch<80>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
-    case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
-    case 160: return launch<160>(q, k, v, o, B, S, H, Hkv, D, strides, causal, stream);
+    case 64: return launch<64>(q, k, v, o, sh, D, strides, causal, stream);
+    case 80: return launch<80>(q, k, v, o, sh, D, strides, causal, stream);
+    case 128: return launch<128>(q, k, v, o, sh, D, strides, causal, stream);
+    case 160: return launch<160>(q, k, v, o, sh, D, strides, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -676,26 +690,27 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int64
 
 }  // namespace
 
-// q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) with element strides
-// {q,k,v}_s{b,s,h} and unit stride in the last dim -> o (B,S,H,Dv),
-// contiguous.  dtype: 0 = fp32 (the SIMT body), 1 = bf16 (the tensor-core
-// body; base addresses and strides 16-byte aligned).  The caller checks
-// shapes, H % Hkv == 0, (D, Dv) in {64, 80, 128, 192} x {64, 80, 128} or
-// (160, 160), and B, S >= 1.
+// q (B,Sq,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv) with element strides
+// {q,k,v}_s{b,s,h} and unit stride in the last dim -> o (B,Sq,H,Dv),
+// contiguous; query row i at position q_offset + i.  dtype: 0 = fp32 (the
+// SIMT body), 1 = bf16 (the tensor-core body; base addresses and strides
+// 16-byte aligned).  The caller checks shapes, H % Hkv == 0, (D, Dv) in
+// {64, 80, 128, 192} x {64, 80, 128} or (160, 160), B, Sq, Skv >= 1 and
+// q_offset >= 0.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int64_t B, int64_t S, int64_t H, int64_t Hkv,
-                                   int64_t D, int64_t DV, int64_t q_sb, int64_t q_ss,
-                                   int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                                   int64_t v_sb, int64_t v_ss, int64_t v_sh, int causal,
-                                   void* stream) {
-  if (D % 16 != 0 || D < 16 || D > 192 || S > 0x7fffffff || H % Hkv != 0)
+                                   int dtype, int64_t B, int64_t Sq, int64_t Skv,
+                                   int64_t q_offset, int64_t H, int64_t Hkv, int64_t D,
+                                   int64_t DV, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                   int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                                   int64_t v_ss, int64_t v_sh, int causal, void* stream) {
+  if (D % 16 != 0 || D < 16 || D > 192 || Sq > 0x7fffffff || Skv > 0x7fffffff ||
+      q_offset < 0 || Sq + q_offset > 0x7fffffff || H % Hkv != 0)
     return int(cudaErrorInvalidValue);
   const int64_t strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  const tc::Shape sh{B, Sq, Skv, H, Hkv, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return int(simt::dispatch(q, k, v, o, B, S, H, Hkv, D, DV, strides, causal != 0, st));
-  if (dtype == 1)
-    return int(tc::dispatch(q, k, v, o, B, S, H, Hkv, D, DV, strides, causal != 0, st));
+  if (dtype == 0) return int(simt::dispatch(q, k, v, o, sh, D, DV, strides, causal != 0, st));
+  if (dtype == 1) return int(tc::dispatch(q, k, v, o, sh, D, DV, strides, causal != 0, st));
   return int(cudaErrorInvalidValue);
 }
 

@@ -9,9 +9,10 @@ with its plain PyTorch version beside it:
   flash_attention_fwd     src/repro/kernels/flash_attention.py:flash_attention_fwd
   ======================  =====================================================
 
-q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv), bf16 or fp32 -> (B,S,H,Dv) in
-q's dtype: grouped-query heads (kv head = h // rep, never repeated in
-memory), causal or not, fp32 accumulation, q upcast to fp32 before the
+q (B,Sq,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv), bf16 or fp32 -> (B,Sq,H,Dv)
+in q's dtype: grouped-query heads (kv head = h // rep, never repeated in
+memory), causal or not (query row i at position ``q_offset + i`` of the
+keys, as a context-parallel rank's slice of the rows), fp32 accumulation, q upcast to fp32 before the
 scaling and p rounded to v's dtype before P.V, as the TPU kernel computes
 it.  (``models.attention.blockwise_attention`` scales q in q's dtype
 instead; in bf16 the two differ by that rounding.)
@@ -31,7 +32,8 @@ over: the kernel picks its own tiles.
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel on the current stream or raises.  Either way it is
 forward only, as the TPU kernel is, and raises when an operand needs a
-gradient.  ``flash_attention_fwd.launches`` counts its launches.
+gradient.  ``flash_attention_fwd.launches`` counts its launches, and
+``flash_attention_fwd.offset_launches`` those of them with ``q_offset > 0``.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ FP32_KV_TILE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _INT, *[_I64] * 15, _INT, _PTR],
+    "flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _INT, *[_I64] * 17, _INT, _PTR],
     "flash_attention_tc_smem_bytes": [_I64, _I64],
 }
 
@@ -94,7 +96,7 @@ def tc_smem_bytes(d: int, dv: int) -> int:
     return int(_lib().flash_attention_tc_smem_bytes(d, dv))
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int = 0) -> None:
     """Raise on operands the kernel does not take."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"expected (B,S,H,D) operands, got {tuple(q.shape)}, "
@@ -103,11 +105,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"expected bfloat16 or float32, got {q.dtype}")
-    b, s, h, d = q.shape
+    b, _, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[3]
-    if k.shape[:2] != (b, s) or v.shape[:3] != k.shape[:3] or k.shape[3] != d:
+    if k.shape[0] != b or v.shape[:3] != k.shape[:3] or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} "
-                         "must share B and S (and k, v their heads; q, k their head dim)")
+                         "must share B (and k, v their length and heads; q, k their head dim)")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} is negative")
     if hkv < 1 or h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
     if (d, dv) not in HEAD_DIMS:
@@ -131,7 +135,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor cores as the kernel's wgmma, then scaled in fp32 (the tensor-core
     body).  The two then differ only in the order of fp32 sums.  Queries
     sit at positions ``q_offset + i`` against all of k/v.  The score block
-    stays (B, S, H, tile) however long S is.
+    stays (B, Sq, H, tile) however long the keys are.
     """
     from repro_torch.models.attention import _flash_fwd_scan, _group_q
 
@@ -146,8 +150,9 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (B,S,H,Dv) in q's dtype.
+                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q (B,Sq,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv) -> (B,Sq,H,Dv) in q's
+    dtype, query row i at position ``q_offset + i``.
 
     Forward only, like the TPU kernel: the call raises when autograd would
     need a gradient through it (use ``blockwise_attention`` to train).  On
@@ -156,12 +161,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     address or a (B,S,H) stride that is not a multiple of 16 bytes) is
     first copied to a fresh contiguous tensor.
     """
-    _check(q, k, v)
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention_fwd has no backward; call it under "
                            "torch.no_grad() or use models.attention.blockwise_attention")
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal)
+        return flash_attention_fwd_plain(q, k, v, causal, q_offset)
     b, s, h, _ = q.shape
     out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
     if out.numel():
@@ -172,14 +178,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream = torch.cuda.current_stream(q.device).cuda_stream
             rc = lib.flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                b, s, h, k.shape[2], q.shape[3], v.shape[3],
+                b, s, k.shape[1], q_offset, h, k.shape[2], q.shape[3], v.shape[3],
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), stream)
         _build.check(lib, rc, "flash_attention_fwd")
         flash_attention_fwd.launches += 1
+        flash_attention_fwd.offset_launches += q_offset > 0
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.offset_launches = 0
 
 #: every kernel wrapper of this module, for launch accounting
 KERNELS = (flash_attention_fwd,)

@@ -364,12 +364,15 @@ def flash_attention(
     backend: str | None = None,
     device: str | torch.device = DEFAULT_DEVICE,
     block: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Self-attention, routed by one rule decided before the call: the
+    """Self-attention of q rows at positions ``q_offset + i`` (a
+    context-parallel rank's slice) against all of k/v, routed by one rule
+    decided before the call: the
     hand-written kernel (the counterpart of the reference's "Pallas on TPU")
     when the operands are on a CUDA device and none needs a gradient, or
     with ``backend="kernel"`` (on CPU tensors, its plain version); else the
-    differentiable ``blockwise_attention(q, k, v, causal, block, 0)``.  The
+    differentiable ``blockwise_attention(q, k, v, causal, block, q_offset)``.  The
     kernel is forward only, as the TPU kernel is: asked for by name, it
     raises when q, k or v needs a gradient.  It ignores ``block``: it walks
     its own KV tiles.  A kernel that fails to build or launch raises."""
@@ -379,7 +382,7 @@ def flash_attention(
     q, k, v = (_float_on(x, dev) for x in (q, k, v))
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if backend == "kernel" or (dev.type == "cuda" and not needs_grad):
-        return flash_attention_kernel.flash_attention_fwd(q, k, v, causal)
+        return flash_attention_kernel.flash_attention_fwd(q, k, v, causal, q_offset)
     from repro_torch.models.attention import blockwise_attention
 
-    return blockwise_attention(q, k, v, causal, block, 0)
+    return blockwise_attention(q, k, v, causal, block, q_offset)

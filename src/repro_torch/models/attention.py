@@ -10,9 +10,17 @@ The layers' self-attention goes through
 :func:`repro_torch.kernels.ops.flash_attention`, the one dispatch point:
 the hand-written flash kernel when q, k and v are CUDA tensors and none
 needs a gradient, ``blockwise_attention`` everywhere else (the CPU,
-autograd).  Cross-attention (``kv_in``) always runs blockwise: the kernel
-takes q and k of one length.  A kernel that fails to build or launch
-raises; nothing falls back.
+autograd).  Cross-attention (``kv_in``) runs blockwise.  A kernel that
+fails to build or launch raises; nothing falls back.
+
+On a mesh (the sharded step, :mod:`repro_torch.parallel.spmd`) each model
+rank holds a slice of the sequence.  The reference's hints take effect as
+explicit collectives: with ``kv_spec`` (context-parallel attention) q
+keeps its rows and the un-repeated K/V are all-gathered over the model
+axis, the rows' causal positions starting at the rank's offset
+(``q_offset``, which the flash kernel takes); ``q_spec`` (q rows over
+model) is where q already lies.  With no hint the layer runs on the whole
+sequence and keeps its slice.
 
 Decode attention computes scores against the full cache with a length
 mask (cost honestly proportional to the cache length).  Unlike the
@@ -29,6 +37,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense_apply, dense_init
+from repro_torch.parallel import spmd
 
 NEG_INF = -1e30
 
@@ -231,19 +240,33 @@ def gqa_apply(
     causal: bool = True,
     block: int = 512,
     kv_in: torch.Tensor | None = None,  # cross-attention source (B, Skv, d)
+    q_spec=None,                        # q rows over model: where they lie
+    kv_spec=None,                       # K/V whole over model: all-gathered
+    resid=None,                         # the residual stream's sharding
 ) -> torch.Tensor:
+    sp = spmd.context(resid, kv_spec)
+    if sp is not None and sp.seq_split and kv_spec is None:
+        def whole(xx, *src):
+            return gqa_apply(p, xx, n_heads, n_kv_heads, head_dim, positions, rope_theta,
+                             causal, block, src[0] if src else None)
+
+        return sp.whole_sequence(whole, x, *([] if kv_in is None else [kv_in]))
     b, s, _ = x.shape
     src = x if kv_in is None else kv_in
     q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
     k = dense_apply(p["wk"], src).reshape(b, src.shape[1], n_kv_heads, head_dim)
     v = dense_apply(p["wv"], src).reshape(b, src.shape[1], n_kv_heads, head_dim)
+    offset = 0 if kv_spec is None else kv_spec.ctx.seq_offset(s)
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+        positions = offset + torch.arange(s, device=x.device)[None, :]
     if kv_in is None and rope_theta > 0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    if kv_spec is not None:
+        k, v = kv_spec.ctx.gather_seq(k), kv_spec.ctx.gather_seq(v)
     if kv_in is None:
-        out = ops.flash_attention(q, k, v, causal, device=q.device, block=block)
+        out = ops.flash_attention(q, k, v, causal, device=q.device, block=block,
+                                  q_offset=offset)
     else:
         out = blockwise_attention(q, k, v, False, block, 0)
     return dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
@@ -333,21 +356,33 @@ def mla_apply(
     v_head: int,
     rope_theta: float = 1e4,
     block: int = 512,
+    q_spec=None,
+    kv_spec=None,
+    resid=None,
 ) -> torch.Tensor:
-    """Training-time MLA: expand the latent to per-head K/V."""
+    """Training-time MLA: expand the latent to per-head K/V.  On a mesh, as
+    :func:`gqa_apply`: with ``kv_spec`` the expanded K/V are all-gathered
+    over model once a layer (MLA has as many K/V heads as q heads)."""
+    sp = spmd.context(resid, kv_spec)
+    if sp is not None and sp.seq_split and kv_spec is None:
+        return sp.whole_sequence(lambda xx: mla_apply(
+            p, xx, n_heads, kv_lora, qk_nope, qk_rope, v_head, rope_theta, block), x)
     b, s, _ = x.shape
     q = dense_apply(p["wq"], x).reshape(b, s, n_heads, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     dkv = dense_apply(p["w_dkv"], x)                 # (B, S, kv_lora + qk_rope)
     c_kv, k_rope = dkv[..., :kv_lora], dkv[..., kv_lora:]
-    pos = torch.arange(s, device=x.device)[None, :]
+    offset = 0 if kv_spec is None else kv_spec.ctx.seq_offset(s)
+    pos = offset + torch.arange(s, device=x.device)[None, :]
     q_rope = apply_rope(q_rope, pos, rope_theta)
     k_rope = apply_rope(k_rope[..., None, :], pos, rope_theta)[..., 0, :]
     k_nope = dense_apply(p["w_uk"], c_kv).reshape(b, s, n_heads, qk_nope)
     v = dense_apply(p["w_uv"], c_kv).reshape(b, s, n_heads, v_head)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, n_heads, qk_rope)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
-    out = ops.flash_attention(qq, k, v, True, device=qq.device, block=block)
+    if kv_spec is not None:
+        k, v = kv_spec.ctx.gather_seq(k), kv_spec.ctx.gather_seq(v)
+    out = ops.flash_attention(qq, k, v, True, device=qq.device, block=block, q_offset=offset)
     return dense_apply(p["wo"], out.reshape(b, s, n_heads * v_head))
 
 

@@ -186,6 +186,7 @@ def chunked_cross_entropy(
     labels: torch.Tensor,       # (B, S) integer
     chunk: int = 128,
     dtype=torch.bfloat16,
+    count: int | None = None,
 ) -> torch.Tensor:
     """Mean next-token CE without materializing (B, S, V) logits.
 
@@ -195,9 +196,13 @@ def chunked_cross_entropy(
     its backward rounds each chunk's gradient of ``unembed`` to bf16 and
     sums the chunks in fp32; here one cast serves every chunk
     (:class:`_CastPerUse`) with that backward.
+
+    ``count`` (a sharded step's rank, which holds a slice of the positions)
+    divides the sum by the whole batch's count of positions instead of
+    ``B * S``, and lets the last chunk run short.
     """
     b, s, _ = hidden.shape
-    if s % chunk:
+    if count is None and s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
     w = unembed.to(dtype)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -208,4 +213,4 @@ def chunked_cross_entropy(
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, yc[..., None])[..., 0]
         total = total + (lse - gold).sum()
-    return total / (b * s)
+    return total / (b * s if count is None else count)

@@ -10,8 +10,12 @@ the reference.
 
 Decode is the O(1) recurrence: h' = da * h + dt * (B x); y = C h + D x.
 
-The reference's ``h_spec`` sharding hints (head-parallel SSD) are dropped
-until the sharding slice of the port.
+On a mesh (the sharded step) each model rank holds a slice of the
+sequence.  The reference's ``h_spec`` (SSM heads over model) becomes two
+all-to-alls: the scan's operands go from sequence-sharded to head-sharded,
+each rank scans its heads over the whole sequence, and the output comes
+back sequence-sharded.  With no hint the layer runs on the whole sequence
+and keeps its slice.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Params, dense_apply, dense_init, rmsnorm_apply, rmsnorm_init
+from repro_torch.parallel import spmd
 
 
 def mamba2_init(
@@ -62,24 +67,49 @@ def mamba2_apply(
     d_state: int,
     n_groups: int = 1,
     chunk: int = 128,
+    h_spec=None,                  # SSM heads over model: head-parallel scan
+    resid=None,                   # the residual stream's sharding
 ) -> torch.Tensor:
-    bsz, s, _ = u.shape
+    sp = spmd.context(resid, h_spec)
+    if sp is not None and sp.seq_split and h_spec is None:
+        return sp.whole_sequence(lambda uu: mamba2_apply(
+            p, uu, d_inner, n_heads, d_state, n_groups, chunk), u)
+    bsz, sl, _ = u.shape
     hd = d_inner // n_heads
     z = dense_apply(p["in_proj"], u)
     gate, x, bmat, cmat, dt = _split_proj(z, d_inner, n_groups, d_state, n_heads)
-    x = x.reshape(bsz, s, n_heads, hd)
+    x = x.reshape(bsz, sl, n_heads, hd)
     # broadcast groups to heads
     rep = n_heads // n_groups
-    bmat = bmat.reshape(bsz, s, n_groups, d_state).repeat_interleave(rep, dim=2)  # (B,S,H,N)
-    cmat = cmat.reshape(bsz, s, n_groups, d_state).repeat_interleave(rep, dim=2)
-    dt = F.softplus(dt.float() + p["dt_bias"])                      # (B,S,H)
-    a = -torch.exp(p["A_log"])                                      # (H,)
+    bmat = bmat.reshape(bsz, sl, n_groups, d_state).repeat_interleave(rep, dim=2)  # (B,S,H,N)
+    cmat = cmat.reshape(bsz, sl, n_groups, d_state).repeat_interleave(rep, dim=2)
+    dt_bias, a_log, d_skip = p["dt_bias"], p["A_log"], p["D"]
+    if h_spec is not None:
+        # head-parallel SSD: the scan's operands from sequence- to head-sharded
+        sp = h_spec.ctx
+        x, bmat, cmat, dt = (sp.heads_from_seq(t) for t in (x, bmat, cmat, dt))
+        dt_bias, a_log, d_skip = (sp.slice_heads(t) for t in (dt_bias, a_log, d_skip))
+    y = _ssd_scan(x, bmat, cmat, dt, dt_bias, a_log, d_skip, chunk)  # (B,S,H,P) fp32
+    if h_spec is not None:
+        y = h_spec.ctx.seq_from_heads(y)
+    y = y.reshape(bsz, sl, d_inner).to(u.dtype)
+    y = rmsnorm_apply(p["norm"], y) * F.silu(gate)
+    return dense_apply(p["out_proj"], y)
+
+
+def _ssd_scan(x, bmat, cmat, dt, dt_bias, a_log, d_skip, chunk: int) -> torch.Tensor:
+    """The chunked SSD scan of x (B,S,H,P) with B/C (B,S,H,N) and the raw
+    dt (B,S,H), plus the D skip term: y (B,S,H,P) in fp32."""
+    bsz, s, n_heads, hd = x.shape
+    d_state = bmat.shape[-1]
+    dt = F.softplus(dt.float() + dt_bias)                           # (B,S,H)
+    a = -torch.exp(a_log)                                           # (H,)
     da = dt * a                                                     # (B,S,H) <= 0
 
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=u.device))
-    h = torch.zeros((bsz, n_heads, hd, d_state), dtype=torch.float32, device=u.device)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    h = torch.zeros((bsz, n_heads, hd, d_state), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, s, chunk):
         xc, bc, cc = x[:, c0:c0 + chunk], bmat[:, c0:c0 + chunk], cmat[:, c0:c0 + chunk]
@@ -106,10 +136,7 @@ def mamba2_apply(
         h = torch.exp(seg[:, -1])[..., None, None] * h + hb
         ys.append(y_intra + y_state)
     y = torch.cat(ys, dim=1)                                        # (B,S,H,P)
-    y = y + x.float() * p["D"][None, None, :, None]
-    y = y.reshape(bsz, s, d_inner).to(u.dtype)
-    y = rmsnorm_apply(p["norm"], y) * F.silu(gate)
-    return dense_apply(p["out_proj"], y)
+    return y + x.float() * d_skip[None, None, :, None]
 
 
 def mamba2_decode(

@@ -30,7 +30,12 @@ without a GPU; pass ``device="cpu"`` to run the plain versions there.
 puts ``jax.checkpoint``: each layer of a stack, each xLSTM block, each
 Mamba2 layer of a hybrid group and the shared block; only while autograd
 records, so serving is unchanged.  The reference's sharding arguments
-(``ep_spec``, ``resid``, ``attn_specs``) wait for the sharding slice.
+(``ep_spec``, ``resid``, ``attn_specs``) carry the sharded step's context
+on a mesh (:mod:`repro_torch.parallel.spmd`): ``params`` are then local
+shards, the batch rows are this rank's, and the residual stream holds the
+rank's slice of the sequence; every module gathers what it needs where it
+uses it, and ``loss_fn`` returns the rank's share of the mean.  With none
+given, the model runs on one device as before.
 Decode writes every attention cache and SSM state in place and returns the cache; ``decode_step`` takes
 ``cur_len`` as an int or a 0-d tensor and turns it into an int once, so a
 caller that passes an int (the serving loop does) never waits on the
@@ -52,6 +57,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xl
+from repro_torch.parallel import spmd
 from repro_torch.models.layers import (
     Params,
     chunked_cross_entropy,
@@ -204,10 +210,13 @@ class ModelConfig:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: str | torch.device = DEFAULT_DEVICE) -> Params:
-    """Seeded params of ``cfg`` on ``device``, fp32 master weights."""
+                device: str | torch.device = DEFAULT_DEVICE,
+                generator: torch.Generator | None = None) -> Params:
+    """Seeded params of ``cfg`` on ``device``, fp32 master weights.  A
+    ``generator`` given is used as it is (its ``device`` places the
+    tensors; ``launch.steps.params_struct`` passes one that reads ``meta``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = generator if generator is not None else torch.Generator(device=dev)
     gen.manual_seed(seed)
     p: Params = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model),
@@ -279,37 +288,52 @@ def _shared_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    x = embed_apply(params["embed"], batch["tokens"])
+def _embed_inputs(params, cfg: ModelConfig, batch, resid=None) -> torch.Tensor:
+    """The input embeddings; on a mesh, this rank's slice of the sequence
+    (the whole rows are embedded, then cut)."""
+    x = embed_apply(tf.whole_layer(params["embed"], resid), batch["tokens"])
     if cfg.frontend == "vision_stub":
-        patches = dense_apply(params["patch_proj"], batch["patch_embeds"])
+        patches = dense_apply(tf.whole_layer(params["patch_proj"], resid), batch["patch_embeds"])
         x = torch.cat([patches.to(x.dtype), x], dim=1)
-    return x
+    sp = spmd.context(resid)
+    return x if sp is None else sp.slice_seq(x)
 
 
-def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Token/frontend inputs -> final hidden states (B, S, d)."""
+def forward(params: Params, cfg: ModelConfig, batch: dict, ep_spec=None, resid=None,
+            attn_specs=None) -> torch.Tensor:
+    """Token/frontend inputs -> final hidden states (B, S, d); on a mesh,
+    this rank's rows and slice of the sequence."""
     if cfg.family == "encdec":
-        return _forward_encdec(params, cfg, batch)
-    x = _embed_inputs(params, cfg, batch)
+        return _forward_encdec(params, cfg, batch, resid=resid, attn_specs=attn_specs)
+    x = _embed_inputs(params, cfg, batch, resid)
     if cfg.family in ("dense", "moe"):
         dense_cfg = dataclasses.replace(cfg, moe_experts=0)
         for lp in params.get("first_layers", []):
-            x = tf.decoder_layer_apply(lp, x, dense_cfg)
+            x = tf.decoder_layer_apply(lp, x, dense_cfg, resid=resid)
         x = tf.scan_stack(params["layers"], x,
-                          lambda lp, h: tf.decoder_layer_apply(lp, h, cfg), remat=cfg.remat)
+                          lambda lp, h: tf.decoder_layer_apply(
+                              lp, h, cfg, ep_spec=ep_spec, attn_specs=attn_specs, resid=resid),
+                          remat=cfg.remat, constraint=resid)
     elif cfg.family == "hybrid":
-        x = _forward_hybrid(params, cfg, x)
+        x = _forward_hybrid(params, cfg, x, resid=resid, attn_specs=attn_specs)
     elif cfg.family == "xlstm":
-        mlstm = tf.remat_if(cfg.remat, lambda p, h: xl.mlstm_apply(
-            p, h, cfg.n_heads, cfg.xlstm_pf, cfg.ssm_chunk))
-        slstm = tf.remat_if(cfg.remat, lambda p, h: xl.slstm_apply(p, h, cfg.n_heads))
+        sp = spmd.context(resid)
+
+        def on_whole_rows(fn):
+            # no hint in the reference: the scans run on the whole sequence
+            return fn if sp is None else (
+                lambda p, h: sp.whole_sequence(lambda hh: fn(sp.gather(p), hh), h))
+
+        mlstm = tf.remat_if(cfg.remat, on_whole_rows(lambda p, h: xl.mlstm_apply(
+            p, h, cfg.n_heads, cfg.xlstm_pf, cfg.ssm_chunk)))
+        slstm = tf.remat_if(cfg.remat, on_whole_rows(
+            lambda p, h: xl.slstm_apply(p, h, cfg.n_heads)))
         for kind, blk in zip(_xlstm_kinds(cfg), params["blocks"]):
-            h = rmsnorm_apply(blk["ln"], x, cfg.norm_eps)
+            h = rmsnorm_apply(tf.whole_layer(blk["ln"], resid), x, cfg.norm_eps)
             x = x + (mlstm if kind == "m" else slstm)(blk["p"], h)
     else:
         raise ValueError(cfg.family)
-    return rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    return rmsnorm_apply(tf.whole_layer(params["ln_f"], resid), x, cfg.norm_eps)
 
 
 def _shared_mlp(shared: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -319,30 +343,36 @@ def _shared_mlp(shared: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return h + dense_apply(shared["mlp"]["down"], F.silu(g) * u)
 
 
-def _forward_hybrid(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _forward_hybrid(params, cfg: ModelConfig, x: torch.Tensor, resid=None,
+                    attn_specs=None) -> torch.Tensor:
+    attn_specs = attn_specs or {}
     emb = x  # original embeddings feed every shared-block invocation
-    shared = params["shared"]
     d2 = 2 * cfg.d_model
 
     def mamba_layer(lp, h):
-        norm_p, m_p = lp
+        norm_p, m_p = tf.whole_layer(lp, resid)
         hn = rmsnorm_apply(norm_p, h, cfg.norm_eps)
         return h + m2.mamba2_apply(m_p, hn, cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state,
-                                   cfg.ssm_groups, chunk=cfg.ssm_chunk)
+                                   cfg.ssm_groups, chunk=cfg.ssm_chunk,
+                                   h_spec=attn_specs.get("ssm_h"), resid=resid)
 
     def shared_block(h):
+        shared = tf.whole_layer(params["shared"], resid)
         cb = torch.cat([h, emb], dim=-1)
         a = attn_mod.gqa_apply(shared["attn"], rmsnorm_apply(shared["ln1"], cb, cfg.norm_eps),
                                cfg.n_heads, cfg.n_kv_heads, d2 // cfg.n_heads,
-                               rope_theta=cfg.rope_theta, block=cfg.attn_block)
+                               rope_theta=cfg.rope_theta, block=cfg.attn_block,
+                               q_spec=attn_specs.get("q"), kv_spec=attn_specs.get("kv"),
+                               resid=resid)
         return _shared_mlp(shared, h + dense_apply(shared["down"], a), cfg)
 
     mamba_layer = tf.remat_if(cfg.remat, mamba_layer)
     shared_block = tf.remat_if(cfg.remat, shared_block)
-    per_group = params["group_norms"]["scale"].shape[1]
+    per_group = cfg.shared_attn_every
     h = x
     # the (groups, per_group) layers in order, one unbind per leaf
-    for i, lp in enumerate(tf.unstack((params["group_norms"], params["groups"]), axes=2)):
+    layers = tf.unstack_on((params["group_norms"], params["groups"]), resid, axes=2)
+    for i, lp in enumerate(layers):
         h = mamba_layer(lp, h)
         if (i + 1) % per_group == 0:
             h = shared_block(h)
@@ -356,32 +386,63 @@ def _sinusoid(s: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
-    """Whisper's encoder over stub frame embeddings (B, S_enc, d) -> (B, S_enc, d)."""
+def encode(params, cfg: ModelConfig, frames: torch.Tensor, resid=None,
+           attn_specs=None) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, S_enc, d) -> (B, S_enc, d);
+    on a mesh, this rank's slice of the encoder sequence."""
     frames = frames.to(torch.bfloat16)
     enc = frames + _sinusoid(frames.shape[1], cfg.d_model, frames.device).to(torch.bfloat16)
+    sp = spmd.context(resid)
+    if sp is not None:
+        enc = sp.slice_seq(enc)
     enc = tf.scan_stack(params["enc_layers"], enc,
-                        lambda lp, h: tf.encoder_layer_apply(lp, h, cfg), remat=cfg.remat)
-    return rmsnorm_apply(params["ln_enc"], enc, cfg.norm_eps)
+                        lambda lp, h: tf.encoder_layer_apply(lp, h, cfg, attn_specs=attn_specs,
+                                                             resid=resid),
+                        remat=cfg.remat, constraint=resid)
+    return rmsnorm_apply(tf.whole_layer(params["ln_enc"], resid), enc, cfg.norm_eps)
 
 
-def _forward_encdec(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    enc = encode(params, cfg, batch["frames"])
-    x = embed_apply(params["embed"], batch["tokens"])
+def _forward_encdec(params, cfg: ModelConfig, batch, resid=None, attn_specs=None) -> torch.Tensor:
+    enc = encode(params, cfg, batch["frames"], resid, attn_specs)
+    x = embed_apply(tf.whole_layer(params["embed"], resid), batch["tokens"])
+    sp = spmd.context(resid)
+    if sp is not None:
+        x = sp.slice_seq(x)
     x = tf.scan_stack(params["dec_layers"], x,
-                      lambda lp, h: tf.cross_decoder_layer_apply(lp, h, enc, cfg),
-                      remat=cfg.remat)
-    return rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+                      lambda lp, h: tf.cross_decoder_layer_apply(lp, h, enc, cfg,
+                                                                 attn_specs=attn_specs,
+                                                                 resid=resid),
+                      remat=cfg.remat, constraint=resid)
+    return rmsnorm_apply(tf.whole_layer(params["ln_f"], resid), x, cfg.norm_eps)
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Mean next-token CE of ``forward``'s hidden states."""
-    hidden = forward(params, cfg, batch)
-    if cfg.frontend == "vision_stub":
-        # loss over text positions only (patch prefix is unsupervised)
-        hidden = hidden[:, cfg.frontend_tokens:, :]
-    return chunked_cross_entropy(hidden, params["unembed"]["w"], batch["labels"],
-                                 chunk=cfg.loss_chunk)
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, ep_spec=None, resid=None,
+            attn_specs=None) -> torch.Tensor:
+    """Mean next-token CE of ``forward``'s hidden states.  On a mesh, this
+    rank's share: its positions' CE summed over the whole batch's count, so
+    the shares over the ranks that split the tokens add up to the mean."""
+    hidden = forward(params, cfg, batch, ep_spec=ep_spec, resid=resid, attn_specs=attn_specs)
+    labels = batch["labels"]
+    sp = spmd.context(resid)
+    if sp is None:
+        if cfg.frontend == "vision_stub":
+            # loss over text positions only (patch prefix is unsupervised)
+            hidden = hidden[:, cfg.frontend_tokens:, :]
+        return chunked_cross_entropy(hidden, params["unembed"]["w"], labels,
+                                     chunk=cfg.loss_chunk)
+    b, sl, _ = hidden.shape
+    lead = cfg.frontend_tokens if cfg.frontend == "vision_stub" else 0
+    start = sp.seq_offset(sl)
+    first = min(max(lead - start, 0), sl)        # this slice's first text row
+    hidden = hidden[:, first:]
+    labels = labels[:, start + first - lead:start + sl - lead]
+    count = sp.whole_batch(b) * (sp.whole_len(sl) - lead)
+    unembed = tf.whole_layer(params["unembed"], resid)["w"]
+    if hidden.shape[1] == 0:
+        # no text in this slice: a zero share that still reaches every
+        # parameter, so this rank's backward runs the others' collectives
+        return (hidden.float() * 0).sum() + (unembed.float() * 0).sum()
+    return chunked_cross_entropy(hidden, unembed, labels, chunk=cfg.loss_chunk, count=count)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,13 @@ semantics, capacity_factor 1.25 default).  Supports shared experts
 (DeepSeek-V2: 2 shared + 64 routed top-6) and pure routed (DBRX: 16 routed
 top-4).
 
-The reference's expert-parallel ``moe_ep_apply`` (a ``shard_map`` over a
-mesh, reached only from the sharded training step) and the ``ep_spec``
-sharding constraint wait for the sharding slice of the port.
+On a mesh, :func:`moe_ep_apply` is the reference's expert-parallel
+dataflow with its collectives written out (the reference's ``shard_map``
+body): per-rank routing, one all-to-all to the expert owners over the
+model axis, the local SwiGLU, one all-to-all back.  The reference's
+``ep_spec`` (a layout constraint on ``moe_apply``'s dispatch buffer) has
+no counterpart: the sharded step runs ``moe_apply`` on whole rows with
+its experts gathered.
 """
 
 from __future__ import annotations
@@ -114,6 +118,84 @@ def moe_apply(
     if "shared" in p:
         out = out + swiglu_apply(p["shared"], xf)
     return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_ep_apply(
+    p: Params,
+    x: torch.Tensor,                # (B_local, S_local, d): B over data, S over model
+    n_experts: int,
+    top_k: int,
+    capacity_factor: float,
+    mesh,
+    data_axes: tuple[str, ...],
+    model_axis: str,
+) -> torch.Tensor:
+    """Expert parallelism as explicit collectives (the reference's
+    ``shard_map`` body, on this rank's shards).
+
+    ``x`` is this rank's block of the tokens; ``p``'s routed leaves are this
+    rank's shards as the reference's in_specs place them: the router
+    ``P(data, None)``, ``w_gate``/``w_up`` ``P(model, data, None)``, ``w_down``
+    ``P(model, None, data)`` (E over model: ``E / tp`` experts a rank); the
+    shared expert, if any, whole.  Each rank all-gathers its experts' shards
+    over the data axes, routes its own tokens with capacity
+    ``ceil(t * k / E * capacity_factor)`` (t = its tokens), sends each
+    expert's buffer to its owner over the model axis, runs its experts and
+    sends the results back.  Differentiable: a gather's backward
+    reduce-scatters, an all-to-all's is the reverse all-to-all, and the
+    router's gradient, used whole on every model rank, is summed over them.
+    """
+    from repro_torch.parallel import spmd
+
+    if tuple(data_axes) != ("data",):
+        raise NotImplementedError(f"data axes {data_axes}: a (data, model) mesh only")
+    data = spmd.mesh_axis(mesh, "data", token=True)
+    model = spmd.mesh_axis(mesh, model_axis, token=True)
+    tp = model.size
+    e_loc = n_experts // tp
+    assert e_loc * tp == n_experts
+    rw = spmd.gather(spmd.sum_grad(p["router"]["w"], model), 0, data)
+    wg = spmd.gather(p["w_gate"], 1, data)
+    wu = spmd.gather(p["w_up"], 1, data)
+    wd = spmd.gather(p["w_down"], 2, data)
+    bf16 = torch.bfloat16
+    bl, sl, d = x.shape
+    t = bl * sl
+    xf = x.reshape(t, d)
+    logits = xf.float() @ rw.float()
+    probs = torch.softmax(logits, dim=-1)
+    topk_p, topk_i = torch.topk(probs, top_k, dim=-1, sorted=True)
+    topk_p = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
+    L = t * top_k
+    cap = max(1, int(math.ceil(t * top_k / n_experts * capacity_factor)))
+    flat_e = topk_i.reshape(L)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=n_experts)
+    starts = torch.cumsum(counts, dim=0) - counts
+    ranks_sorted = torch.arange(L, device=x.device) - starts[sorted_e]
+    pos = torch.empty_like(flat_e).scatter_(0, order, ranks_sorted)
+    keep = pos < cap
+    slot = flat_e * cap + torch.where(keep, pos, 0)
+    tok_of = torch.arange(L, device=x.device) // top_k
+    contrib = torch.where(keep[:, None], xf[tok_of].to(bf16), 0)
+    # every kept slot takes one contribution and a dropped one adds an exact 0
+    buffer = torch.zeros((n_experts * cap, d), dtype=bf16, device=x.device).index_add(
+        0, slot, contrib)
+    # -> expert owners: (tp, e_loc * cap, d) blocks, one per peer
+    recv = spmd.all_to_all(buffer, model.group)
+    h = recv.reshape(tp, e_loc, cap, d).transpose(0, 1).reshape(e_loc, tp * cap, d)
+    g = torch.einsum("ecd,edf->ecf", h, wg.to(bf16))
+    u = torch.einsum("ecd,edf->ecf", h, wu.to(bf16))
+    y = torch.einsum("ecf,efd->ecd", F.silu(g) * u, wd.to(bf16))
+    back = y.reshape(e_loc, tp, cap, d).transpose(0, 1).reshape(tp * e_loc * cap, d)
+    y_home = spmd.all_to_all(back, model.group)
+    per_choice = y_home[slot] * (keep[:, None] * topk_p.reshape(L)[:, None]).to(bf16)
+    out = torch.zeros((t, d), dtype=bf16, device=x.device).index_add(0, tok_of, per_choice)
+    out = out.reshape(bl, sl, d).to(x.dtype)
+    if "shared" in p:
+        out = out + swiglu_apply(p["shared"], xf).reshape(bl, sl, d).to(x.dtype)
+    return out
 
 
 def moe_flops_per_token(

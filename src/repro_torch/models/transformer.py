@@ -13,8 +13,15 @@ backward.  Decode takes single layers as views (:func:`layer`).
 each layer under ``torch.utils.checkpoint`` (non-reentrant), which keeps
 only the layer's input and recomputes the rest in the backward; it applies
 only while autograd records (``torch.is_grad_enabled()``), so serving under
-``no_grad`` runs the plain loop.  The reference's ``constraint`` (a
-sharding constraint on the residual stream) waits for the sharding slice.
+``no_grad`` runs the plain loop.
+
+On a mesh the reference's ``constraint`` (the residual stream's sharding)
+carries the sharded step's context: each layer's parameters arrive as
+local shards (:meth:`repro_torch.parallel.spmd.StepContext.unstack`) and
+are all-gathered inside the layer, under its remat, so the backward
+gathers them again instead of keeping every layer's whole weights.  The
+layers pass the reference's ``attn_specs`` hints (``q``, ``kv``,
+``moe_ep``) to attention and the MoE.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.parallel import spmd
 from repro_torch.models.layers import (
     Params,
     gelu_mlp_apply,
@@ -100,17 +108,50 @@ def _mlp_apply(p: Params, h: torch.Tensor, cfg, dense_fallback: bool) -> torch.T
     return swiglu_apply(p["mlp"], h)
 
 
-def decoder_layer_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+#: a routed MoE's leaves that ``moe_ep_apply`` takes as shards
+EP_LOCAL = ("router", "w_gate", "w_up", "w_down")
+
+
+def whole_layer(p: Any, resid, keep_local: tuple[str, ...] = ()) -> Any:
+    """Parameters all-gathered from their shards on a mesh (as they are on
+    one device); ``p["mlp"]``'s ``keep_local`` leaves stay shards."""
+    sp = spmd.context(resid)
+    if sp is None:
+        return p
+    if not keep_local:
+        return sp.gather(p)
+    out = {k: sp.gather(v) for k, v in p.items() if k != "mlp"}
+    out["mlp"] = {k: v if k in keep_local else sp.gather(v) for k, v in p["mlp"].items()}
+    return out
+
+
+def decoder_layer_apply(p: Params, x: torch.Tensor, cfg, ep_spec=None, attn_specs=None,
+                        resid=None) -> torch.Tensor:
+    # ep_spec, the reference's constraint on the dispatch buffer, has no
+    # counterpart: on a mesh moe_apply routes whole rows with its experts whole
+    attn_specs = attn_specs or {}
+    ep_ctx = attn_specs.get("moe_ep") if cfg.moe_experts else None
+    p = whole_layer(p, resid, EP_LOCAL if ep_ctx is not None else ())
+    specs = {"q_spec": attn_specs.get("q"), "kv_spec": attn_specs.get("kv"), "resid": resid}
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if cfg.mla_kv_lora:
         a = attn.mla_apply(p["attn"], h, cfg.n_heads, cfg.mla_kv_lora, cfg.mla_qk_nope,
                            cfg.mla_qk_rope, cfg.mla_v_head, rope_theta=cfg.rope_theta,
-                           block=cfg.attn_block)
+                           block=cfg.attn_block, **specs)
     else:
         a = attn.gqa_apply(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                           rope_theta=cfg.rope_theta, block=cfg.attn_block)
+                           rope_theta=cfg.rope_theta, block=cfg.attn_block, **specs)
     x = x + a
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    if ep_ctx is not None:
+        mesh, data_axes, model_axis = ep_ctx
+        return x + moe_mod.moe_ep_apply(p["mlp"], h, cfg.moe_experts, cfg.moe_top_k,
+                                        cfg.capacity_factor, mesh, data_axes, model_axis)
+    sp = spmd.context(resid)
+    if cfg.moe_experts and sp is not None:
+        # per-row routing ranks a row's tokens together: route whole rows
+        return x + sp.whole_sequence(
+            lambda hh: _mlp_apply(p, hh, cfg, cfg.moe_dense_fallback), h)
     return x + _mlp_apply(p, h, cfg, cfg.moe_dense_fallback)
 
 
@@ -166,13 +207,22 @@ def scan_stack(
     x: torch.Tensor,
     apply_one: Callable[[Params, torch.Tensor], torch.Tensor],
     remat: bool = False,
+    constraint=None,
 ) -> torch.Tensor:
     """``apply_one`` over the leading layer axis of ``layer_params``, each
-    layer under :func:`remat_if`."""
+    layer under :func:`remat_if`.  On a mesh (``constraint``, the residual
+    stream's sharding) the layers are shards, which ``apply_one`` gathers."""
     f = remat_if(remat, apply_one)
-    for lp in unstack(layer_params):
+    for lp in unstack_on(layer_params, constraint):
         x = f(lp, x)
     return x
+
+
+def unstack_on(stacked: Any, resid, axes: int = 1) -> list:
+    """:func:`unstack`, or on a mesh the sharded step's (each layer's shards
+    bound for its gather)."""
+    sp = spmd.context(resid)
+    return unstack(stacked, axes) if sp is None else sp.unstack(stacked, axes)
 
 
 def scan_stack_decode(
@@ -200,10 +250,14 @@ def encoder_layer_init(gen: torch.Generator, cfg) -> Params:
     }
 
 
-def encoder_layer_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def encoder_layer_apply(p: Params, x: torch.Tensor, cfg, attn_specs=None,
+                        resid=None) -> torch.Tensor:
+    attn_specs = attn_specs or {}
+    p = whole_layer(p, resid)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     a = attn.gqa_apply(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                       rope_theta=0.0, causal=False, block=cfg.attn_block)
+                       rope_theta=0.0, causal=False, block=cfg.attn_block,
+                       q_spec=attn_specs.get("q"), kv_spec=attn_specs.get("kv"), resid=resid)
     x = x + a
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     return x + gelu_mlp_apply(p["mlp"], h)
@@ -222,13 +276,17 @@ def cross_decoder_layer_init(gen: torch.Generator, cfg) -> Params:
 
 
 def cross_decoder_layer_apply(
-    p: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg
+    p: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg, attn_specs=None, resid=None
 ) -> torch.Tensor:
+    attn_specs = attn_specs or {}
+    p = whole_layer(p, resid)
+    specs = {"q_spec": attn_specs.get("q"), "kv_spec": attn_specs.get("kv"), "resid": resid}
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     x = x + attn.gqa_apply(p["self"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                           rope_theta=cfg.rope_theta, block=cfg.attn_block)
+                           rope_theta=cfg.rope_theta, block=cfg.attn_block, **specs)
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     x = x + attn.gqa_apply(p["cross"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                           rope_theta=0.0, causal=False, block=cfg.attn_block, kv_in=enc_out)
+                           rope_theta=0.0, causal=False, block=cfg.attn_block, kv_in=enc_out,
+                           **specs)
     h = rmsnorm_apply(p["ln3"], x, cfg.norm_eps)
     return x + gelu_mlp_apply(p["mlp"], h)

@@ -64,12 +64,14 @@ def adamw_update(
     opt_state: dict,
     cfg: AdamWConfig,
     lr_scale: torch.Tensor | float = 1.0,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[Any, dict, dict]:
     """Returns (params, opt_state, metrics); params, ``m`` and ``v`` are
     updated in place, ``step`` is a new 0-d tensor, and metrics hold the
-    0-d ``grad_norm`` and ``lr``."""
+    0-d ``grad_norm`` and ``lr``.  A sharded step passes the local shards
+    and the whole tree's ``grad_norm``, which the shards alone do not give."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)

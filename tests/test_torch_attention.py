@@ -516,12 +516,45 @@ def test_ops_flash_attention_on_cpu_matches_reference(dtype, tol, causal):
     _close(got, want, tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_row_blocks_with_offsets_equal_the_unsplit_call(dtype, d):
+    """q cut into 4 row blocks (a context-parallel prefill's ranks), each
+    with its offset against the whole K/V, concatenated: the unsplit call.
+    Each row walks the same tiles in the same order, so the plain version
+    gives the same bytes (the kernel on the card, tests/test_torch_cuda.py)."""
+    q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype))
+               for x in _qkv(34, 2, 128, 4, 2, d))
+    whole = pt_flash.flash_attention_fwd(q, k, v, True)
+    parts = [pt_flash.flash_attention_fwd(q[:, i:i + 32], k, v, True, i)
+             for i in range(0, 128, 32)]
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+    via_ops = [pt_ops.flash_attention(q[:, i:i + 32], k, v, True, backend="kernel", device=CPU,
+                                      q_offset=i) for i in range(0, 128, 32)]
+    assert torch.equal(torch.cat(via_ops, dim=1), whole)
+
+
+@pytest.mark.parametrize("sq,skv,q_offset", [(32, 128, 96), (40, 100, 60), (16, 64, 0), (7, 90, 50)])
+def test_flash_with_query_offset_matches_reference_blockwise(sq, skv, q_offset):
+    """The plain flash version with ``q_offset`` against the reference's
+    ``blockwise_attention`` with the same offset (fp32, 3e-4 as the
+    reference holds its kernel)."""
+    q = _normal(43, (2, sq, 4, 64))
+    k, v = _normal(44, (2, skv, 2, 64)), _normal(45, (2, skv, 2, 64))
+    want = _jit(jx_attn.blockwise_attention, causal=True, block=16, q_offset=q_offset)(
+        *map(jnp.asarray, (q, k, v)))
+    got = pt_flash.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)), True, q_offset)
+    _close(got, want, 3e-4)
+    with pytest.raises(ValueError):
+        pt_flash.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)), True, -1)
+
+
 @pytest.mark.parametrize("case", ["head_dim", "seq", "dtype_mismatch", "fp16", "heads"])
 def test_flash_wrapper_refuses_operands_the_kernel_does_not_take(case):
     q, k, v = (torch.from_numpy(x) for x in _qkv(33, 1, 16, 4, 2, 64))
     args, error = {
         "head_dim": ((q[..., :48], k[..., :48], v), ValueError),
-        "seq": ((q, k[:, :8], v[:, :8]), ValueError),
+        "seq": ((q, k[:, :8], v), ValueError),          # k and v of two lengths
         "dtype_mismatch": ((q, k.to(torch.bfloat16), v), TypeError),
         "fp16": ((q.half(), k.half(), v.half()), TypeError),
         "heads": ((q[:, :, :3], k, v), ValueError),

@@ -417,6 +417,38 @@ def test_flash_attention_gqa_groups(cuda, rep, causal, dtype):
     _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal), dtype)
 
 
+@pytest.mark.parametrize("sq,skv,q_offset", [(128, 512, 384), (100, 300, 200), (64, 256, 64),
+                                             (300, 300, 0), (1, 129, 128), (200, 700, 37),
+                                             (128, 128, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_query_offset_matches_plain(cuda, sq, skv, q_offset, causal, dtype):
+    """q rows at positions q_offset + i against Skv keys (a context-parallel
+    rank's rows), in both bodies, offsets on and off the tile grid."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(sq * 7 + skv * 3 + q_offset)
+    q, _, _ = _qkv(rng, 2, sq, 4, 2, 128, 128, dtype, cuda)
+    _, k, v = _qkv(rng, 2, skv, 4, 2, 128, 128, dtype, cuda)
+    before = fa.flash_attention_fwd.offset_launches
+    got = fa.flash_attention_fwd(q, k, v, causal, q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.offset_launches == before + (q_offset > 0)
+    assert got.shape == (2, sq, 4, 128)
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal, q_offset), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_row_blocks_with_offsets_equal_the_whole(cuda, dtype):
+    """q cut into 4 row blocks, each launched with its offset against all of
+    k/v, gives the unsplit launch's bytes: every row walks the same tiles in
+    the same order."""
+    rng = np.random.default_rng(77)
+    q, k, v = _qkv(rng, 1, 1024, 8, 2, 128, 128, dtype, cuda)
+    whole = fa.flash_attention_fwd(q, k, v, True)
+    parts = [fa.flash_attention_fwd(q[:, i:i + 256], k, v, True, i) for i in range(0, 1024, 256)]
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
 @pytest.mark.parametrize("case", ["base", "stride", "head_dim"])
 def test_flash_attention_copies_operands_tma_cannot_read(cuda, case):
     """bf16 operands whose base address or (B,S,H) stride is not a multiple
@@ -476,8 +508,10 @@ def test_flash_attention_refuses_operands_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(rng, 1, 64, 4, 2, 128, 128, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_fwd(q[..., :96], k[..., :96], v)
-    with pytest.raises(ValueError, match="share B and S"):
-        fa.flash_attention_fwd(q, k[:, :32], v[:, :32])
+    with pytest.raises(ValueError, match="share B"):
+        fa.flash_attention_fwd(q, k[:, :32], v)           # k and v of two lengths
+    with pytest.raises(ValueError, match="negative"):
+        fa.flash_attention_fwd(q, k, v, True, -1)
     with pytest.raises(TypeError, match="dtypes differ"):
         fa.flash_attention_fwd(q, k.float(), v)
     with pytest.raises(TypeError, match="bfloat16 or float32"):

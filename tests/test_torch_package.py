@@ -106,6 +106,28 @@ TRAINING = [
     "launch/train.py",
 ]
 
+#: the sharding plane (ported), which the AST scan must cover too
+SHARDING = [
+    "parallel/__init__.py",
+    "parallel/sharding.py",
+    "parallel/spmd.py",
+    "launch/mesh.py",
+    "runtime/elastic.py",
+]
+
+#: what each package's ``__init__`` exports of the sharding plane
+SHARDING_EXPORTS = {
+    "repro_torch.parallel": ["AbstractMesh", "MeshAxes", "NamedSharding", "PartitionSpec",
+                             "batch_dim_spec", "cache_specs", "data_batch_specs",
+                             "distribute_tree", "moe_buffer_spec", "param_shardings",
+                             "param_specs", "placements", "residual_spec"],
+    "repro_torch.launch": ["batch_shardings", "cache_struct", "input_specs",
+                           "make_debug_mesh", "make_production_mesh", "model_constraints",
+                           "opt_state_struct", "params_struct", "sharded_loss_and_grads",
+                           "step_shardings"],
+    "repro_torch.runtime": ["build_mesh", "grow", "reshard_state", "shrink"],
+}
+
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -131,8 +153,17 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_ast_scan_covers_the_model_stack_and_the_serving_path():
     scanned = {path.relative_to(PORT).as_posix() for path in _port_files()[:-1]}
-    assert set(MODEL_AND_SERVING) | set(TRAINING) | {"configs/base.py",
-                                                     "configs/registry.py"} <= scanned
+    assert set(MODEL_AND_SERVING) | set(TRAINING) | set(SHARDING) | {
+        "configs/base.py", "configs/registry.py"} <= scanned
+
+
+@pytest.mark.parametrize("package", sorted(SHARDING_EXPORTS))
+def test_init_exports_the_sharding_plane(package):
+    import importlib
+
+    module = importlib.import_module(package)
+    assert set(SHARDING_EXPORTS[package]) <= set(module.__all__)
+    assert all(getattr(module, name) is not None for name in module.__all__)
 
 
 def test_ast_scan_tells_repro_torch_from_repro(tmp_path):
@@ -162,6 +193,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.optim.compression, repro_torch.data, repro_torch.data.pipeline\n"
         "import repro_torch.runtime, repro_torch.runtime.train_loop\n"
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.parallel.sharding, repro_torch.parallel.spmd\n"
+        "import repro_torch.launch.mesh, repro_torch.runtime.elastic\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

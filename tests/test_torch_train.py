@@ -112,7 +112,8 @@ def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
     params = init_params(cfg, seed=3, device=CPU)
     calls = []
     apply = tf.decoder_layer_apply
-    monkeypatch.setattr(tf, "decoder_layer_apply", lambda *a: calls.append(1) or apply(*a))
+    monkeypatch.setattr(tf, "decoder_layer_apply",
+                        lambda *a, **k: calls.append(1) or apply(*a, **k))
     for remat, want in ((True, 2 * cfg.n_layers), (False, cfg.n_layers)):
         calls.clear()
         loss_and_grads(params, dataclasses.replace(cfg, remat=remat), _batch(cfg))

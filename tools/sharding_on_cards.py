@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""The port's sharded train and prefill steps on NCCL, one rank a card.
+
+    python3 tools/sharding_on_cards.py [--out-dir chiprun_out/sharding] [--parts abcde]
+
+Needs four cards and uses four.  Every rank makes the same seeded params
+and batches (``chip_smoke``'s seeds and makers), places them on a
+(data, model) ``DeviceMesh`` as DTensors by the rules, and runs
+``launch.steps``' sharded steps.  Parts:
+
+(a) yi-9b whole (48 layers, published widths, remat on), FSDP training on
+    (4, 1) at B=4 and on (2, 2) at B=2, S=4096: the median step ms over
+    ``TIMED`` steps after a warm one, tokens/s, model FLOPs over step time
+    against 989 TFLOP/s a card, and each card's peak memory.  141 GB of
+    training state: more than one card holds.
+(b) yi-9b cut to 8 layers, B=4, S=4096: the sharded step on (4, 1) and on
+    (2, 2) against the one-card step on rank 0's card from the same params,
+    moments and batch: the loss, the grad norm and every leaf of params and
+    both moments (relative RMS error; ``LIMITS``).
+(c) deepseek-v2-lite at published widths cut to 4 of 27 layers (1 dense, 3
+    MoE), B=2, S=4096, on (2, 2), its MoE layers through ``moe_ep_apply``,
+    against the same cut on one card, both at a capacity factor that drops
+    no token (``MOE_CAPACITY``), so per-rank routing and per-row routing
+    keep the same tokens; the one-card step routes each token as the
+    mesh's step did (``pinned_routing``, as ``chip_smoke.py`` phase 6 pins
+    its comparison prefill).
+(d) the context-parallel prefill of yi-9b whole at B=1, S=32768 on (1, 4):
+    each rank's quarter of the rows through the flash kernel at its offset
+    against the gathered K/V; the last position's logits against the
+    one-card prefill within ``chip_smoke.WHOLE_MODEL``, and both ms, with
+    the kernel's launches and those with a q_offset.
+(e) ``elastic.shrink`` from 4 ranks to 2 after a step of (b)'s cut on
+    (2, 2), then one step on the survivors, against a 2-rank step from the
+    same state distributed afresh: bit for bit, under deterministic
+    algorithms.
+
+Prints the card's name and power limit and, last, one JSON object (also
+written to ``OUT_DIR/sharding.json``).  ``--cpu-rehearsal`` runs the same
+parts on 4 gloo ranks on the CPU at smoke widths (no numbers to keep: a
+check of the script before a 4-card call).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import datetime
+import json
+import os
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.models.layers import tree_map  # noqa: E402
+
+WORLD = 4
+SEQ = 4096
+TIMED = 3
+CUT = 8                       # (b) and (e): yi-9b's layers
+DSV2_CUT = 4                  # (c): 1 dense + 3 MoE layers
+MOE_CAPACITY = 8.0            # (c): drops nothing on either path
+PREFILL_SEQ = 32768           # (d)
+START_STEP = 20               # the optimizer's step before a compared step (lr > 0)
+#: (b), (c): the sharded step against one card's, both in bf16 (the CPU
+#: tests' bf16 limits, tests/test_torch_sharded_step.py): the loss relative
+#: error, m (the gradient) and the params relative RMS error a leaf, v (its
+#: square) twice that; a leaf that starts at zero is held through m and v
+LIMITS = {"loss": 1e-3, "m": 5e-2, "v": 1e-1, "params": 5e-2}
+#: "cuda" on the cards; ``--cpu-rehearsal`` sets "cpu" (gloo, smoke widths)
+DEVICE_TYPE = "cuda"
+
+
+def sync() -> None:
+    import torch
+
+    if DEVICE_TYPE == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache() -> None:
+    import torch
+
+    if DEVICE_TYPE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def log(rank: int, *args) -> None:
+    if rank == 0:
+        print(*args, flush=True)
+
+
+def yi(layers: int):
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["yi-9b"].model if DEVICE_TYPE == "cuda" else ARCHS["yi-9b"].smoke
+    return dataclasses.replace(cfg, n_layers=layers, remat=True)
+
+
+def dsv2():
+    from repro_torch.configs import ARCHS
+
+    arch = ARCHS["deepseek-v2-lite-16b"]
+    cfg = arch.model if DEVICE_TYPE == "cuda" else arch.smoke
+    return dataclasses.replace(cfg, n_layers=DSV2_CUT if DEVICE_TYPE == "cuda" else 3,
+                               capacity_factor=MOE_CAPACITY)
+
+
+def sharded_params(cfg, mesh, dev, seed=cs.MODEL_SEED, keep_whole=False):
+    """Seeded params made whole on this card and placed on ``mesh``, each
+    shard in storage of its own; the whole tree is kept only when asked."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.parallel import sharding as sh
+
+    whole = init_params(cfg, seed=seed, device=dev)
+    placed = own_shards(sh.distribute_tree(whole, mesh))
+    if not keep_whole:
+        del whole
+        empty_cache()
+        return placed, None
+    return placed, whole
+
+
+def own_shards(tree):
+    """DTensors whose local shards own their storage (``distribute_tensor``
+    may hand back views of the whole tensor it was given)."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: DTensor.from_local(
+        t.to_local().clone(), t.device_mesh, t.placements, run_check=False), tree)
+
+
+def timed_steps(step, params, opt, batch, n: int) -> tuple[list[float], tuple]:
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(n):
+        dist.barrier()
+        sync()
+        start = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        sync()
+        times.append((time.perf_counter() - start) * 1e3)
+    return times, (params, opt, metrics)
+
+
+def part_a(rank: int, dev) -> dict:
+    """yi-9b whole, FSDP training on (4, 1) at B=4 and (2, 2) at B=2."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+
+    cfg = yi(48)
+    out = {}
+    for key, shape, b in (("4x1", (4, 1), 4), ("2x2", (2, 2), 2)):
+        mesh = mesh_mod.make_debug_mesh(*shape, device_type=DEVICE_TYPE)
+        arch, cell = cs.arch_shape(cfg, "train", b, SEQ)
+        params = sharded_params(cfg, mesh, dev)[0]
+        opt = cs.opt_at(params, START_STEP)
+        batch = cs.train_batch(cfg, dev, np.random.default_rng(cs.MODEL_SEED + 1), b, SEQ)
+        if DEVICE_TYPE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        times, (params, opt, metrics) = timed_steps(
+            steps.make_train_step(arch, cell, mesh), params, opt, batch, 1 + TIMED)
+        ms = statistics.median(times[1:])
+        flops = cs.model_flops(cfg, b * SEQ, SEQ)
+        model = flops["bf16"] + flops["attention_fp32"]
+        peak = torch.tensor([torch.cuda.max_memory_allocated() if DEVICE_TYPE == "cuda" else 0],
+                            device=dev)
+        gathered = [torch.zeros_like(peak) for _ in range(WORLD)]
+        torch.distributed.all_gather(gathered, peak)
+        out[key] = {"batch": [b, SEQ], "step_ms": times, "median_step_ms": ms,
+                    "tokens_per_s": b * SEQ / ms * 1e3, "model_flops": model,
+                    "share_of_bf16_peak": model / (ms * 1e-3) / (WORLD * cs.PEAK_FLOPS["bfloat16"]),
+                    "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                    "peak_memory_per_card": [int(x) for x in gathered]}
+        log(rank, f"  (a) yi-9b 48 layers on {key}, B={b} S={SEQ}: step {ms:.1f} ms "
+                  f"{[round(t, 1) for t in times]}, {out[key]['tokens_per_s']:.1f} tokens/s, "
+                  f"{out[key]['share_of_bf16_peak']:.4f} of 4 x 989 TFLOP/s, peak memory a card "
+                  f"{out[key]['peak_memory_per_card']}, loss {out[key]['loss']}")
+        del params, opt, batch, metrics
+        empty_cache()
+    return out
+
+
+def leaf_errors(rank: int, got_tree, want_host: dict, dev) -> dict:
+    """Each leaf's relative RMS error of a sharded tree against whole host
+    tensors (rank 0 compares; every rank takes part in the gathers)."""
+    from repro_torch.parallel import sharding as sh
+
+    out = {}
+    for path, got in sh.leaves_with_path(got_tree):
+        whole = got.full_tensor()
+        if rank == 0:
+            want = want_host[path].to(dev)
+            out[path] = float((whole.double() - want.double()).norm()
+                              / want.double().norm().clamp_min(1e-30))
+        del whole
+    return out
+
+
+def one_card_step(rank: int, cfg, dev, b: int, routes: dict | None = None) -> dict | None:
+    """Rank 0's one-card step from the seeded start (its MoE layers routed
+    as ``routes`` says, when given): its loss, grad norm, and params and
+    moments after it on the host (by path)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.parallel import sharding as sh
+
+    res = None
+    if rank == 0:
+        arch, cell = cs.arch_shape(cfg, "train", b, SEQ)
+        params = init_params(cfg, seed=cs.MODEL_SEED, device=dev)
+        zero = {path for path, t in sh.leaves_with_path(params) if not bool(t.any())}
+        batch = cs.train_batch(cfg, dev, np.random.default_rng(cs.MODEL_SEED + 1), b, SEQ)
+        start = time.perf_counter()
+        with pinned_routing(routes) if routes else contextlib.nullcontext():
+            params, opt, metrics = steps.make_train_step(arch, cell)(
+                params, cs.opt_at(params, START_STEP), batch)
+        sync()
+        host = {kind: {path: t.cpu() for path, t in sh.leaves_with_path(tree)}
+                for kind, tree in (("params", params), ("m", opt["m"]), ("v", opt["v"]))}
+        res = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "ms": (time.perf_counter() - start) * 1e3, "host": host, "zero_init": zero}
+        del params, opt, metrics, batch
+        empty_cache()
+    dist.barrier()
+    return res
+
+
+def sharded_step(rank: int, cfg, dev, b: int, shape: tuple) -> tuple[dict, tuple]:
+    """The sharded step on a mesh of ``shape`` from the seeded start: its
+    row (ms, loss, grad norm) and its (params, moments) DTensors."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+
+    mesh = mesh_mod.make_debug_mesh(*shape, device_type=DEVICE_TYPE)
+    arch, cell = cs.arch_shape(cfg, "train", b, SEQ)
+    params = sharded_params(cfg, mesh, dev)[0]
+    batch = cs.train_batch(cfg, dev, np.random.default_rng(cs.MODEL_SEED + 1), b, SEQ)
+    start = time.perf_counter()
+    params, opt, metrics = steps.make_train_step(arch, cell, mesh)(
+        params, cs.opt_at(params, START_STEP), batch)
+    sync()
+    row = {"ms": (time.perf_counter() - start) * 1e3, "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "moe_ep": "moe_ep" in (steps.model_constraints(arch, cell, mesh)[2] or {})}
+    return row, (params, opt)
+
+
+def against_one_card(rank: int, row: dict, state: tuple, one, dev) -> dict:
+    """A sharded step's row completed with its errors against rank 0's
+    one-card step (every rank takes part in the gathers)."""
+    params, opt = state
+    errors = {kind: leaf_errors(rank, tree, one["host"][kind] if one else {}, dev)
+              for kind, tree in (("params", params), ("m", opt["m"]), ("v", opt["v"]))}
+    if rank == 0:
+        row["loss_rel_err"] = abs(row["loss"] - one["loss"]) / abs(one["loss"])
+        row["grad_norm_rel_err"] = abs(row["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        row["worst"] = {}
+        for kind, errs in errors.items():
+            if kind == "params":
+                errs = {p: e for p, e in errs.items() if p not in one["zero_init"]}
+            path = max(errs, key=errs.get)
+            row["worst"][kind] = [path, errs[path]]
+        row["ok"] = (row["loss_rel_err"] <= LIMITS["loss"]
+                     and all(e <= LIMITS[k] for k, (_, e) in row["worst"].items()))
+    return row
+
+
+@contextlib.contextmanager
+def recorded_routing(routes: dict):
+    """Record each MoE layer's routing on the mesh: in the first
+    ``moe_ep_apply`` call of a layer, every rank takes the top k experts of
+    its tokens as that call does, and the ranks' blocks are joined into the
+    whole batch's (B, S, k) choices, ``routes[i]`` for the i-th MoE layer."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.parallel import spmd
+
+    saved, order = moe.moe_ep_apply, {}
+
+    def recording(p, x, n_experts, top_k, capacity_factor, mesh, data_axes, model_axis):
+        out = saved(p, x, n_experts, top_k, capacity_factor, mesh, data_axes, model_axis)
+        key = p["router"]["w"].data_ptr()
+        if key not in order:
+            order[key] = len(order)
+            with torch.no_grad():
+                rw = spmd.gather(p["router"]["w"], 0, spmd.mesh_axis(mesh, "data", True))
+                bl, sl, d = x.shape
+                probs = torch.softmax(x.reshape(-1, d).float() @ rw.float(), dim=-1)
+                mine = torch.topk(probs, top_k, dim=-1, sorted=True).indices
+                blocks = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+                dist.all_gather(blocks, mine.contiguous())
+                grid = mesh.mesh
+                whole = torch.empty((grid.shape[0] * bl, grid.shape[1] * sl, top_k),
+                                    dtype=mine.dtype, device=mine.device)
+                for r, block in enumerate(blocks):
+                    di, mi = (int(i) for i in (grid == r).nonzero()[0])
+                    whole[di * bl:(di + 1) * bl, mi * sl:(mi + 1) * sl] = block.reshape(
+                        bl, sl, top_k)
+                routes[order[key]] = whole
+        return out
+
+    moe.moe_ep_apply = recording
+    try:
+        yield routes
+    finally:
+        moe.moe_ep_apply = saved
+
+
+@contextlib.contextmanager
+def pinned_routing(routes: dict):
+    """The one-card MoE layers routed as ``routes`` says (the i-th MoE layer
+    by the order of first calls, its recompute under remat as its forward):
+    ``chip_smoke.moe_plain`` with those choices, every choice kept (the
+    capacity factor drops none), weighted by the layer's own
+    probabilities."""
+    import torch
+
+    from repro_torch.models import moe
+
+    saved, order = moe.moe_apply, {}
+
+    def pinned(p, x, n_experts, top_k, capacity_factor=1.25, dense_fallback=False):
+        if dense_fallback:
+            return saved(p, x, n_experts, top_k, capacity_factor, dense_fallback)
+        key = order.setdefault(p["router"]["w"].data_ptr(), len(order))
+        top_i = routes[key].reshape(-1, top_k)
+        keep = torch.ones_like(top_i, dtype=torch.bool)
+        return cs.moe_plain(p, x, n_experts, top_k, capacity_factor, (top_i, keep))[0]
+
+    moe.moe_apply = pinned
+    try:
+        yield
+    finally:
+        moe.moe_apply = saved
+
+
+def part_b(rank: int, dev) -> dict:
+    cfg = yi(CUT)
+    one = one_card_step(rank, cfg, dev, 4)
+    res = {"one_card": None if one is None else {k: one[k] for k in ("loss", "grad_norm", "ms")}}
+    for key, shape in (("4x1", (4, 1)), ("2x2", (2, 2))):
+        row, state = sharded_step(rank, cfg, dev, 4, shape)
+        res[key] = against_one_card(rank, row, state, one, dev)
+        log(rank, f"    {cfg.name} ({cfg.n_layers} layers) on {key}, B=4: {res[key]}")
+        del state
+        empty_cache()
+    return res
+
+
+def part_c(rank: int, dev) -> dict:
+    """The sharded step first, its routing recorded; then the one-card step
+    routed as the mesh routed (near-ties of a router would otherwise part
+    the two on tokens whose choice is a coin toss in bf16)."""
+    cfg = dsv2()
+    routes: dict = {}
+    with recorded_routing(routes):
+        row, state = sharded_step(rank, cfg, dev, 2, (2, 2))
+    one = one_card_step(rank, cfg, dev, 2, routes)
+    res = {"one_card": None if one is None else {k: one[k] for k in ("loss", "grad_norm", "ms")},
+           "pinned_layers": len(routes)}
+    res["2x2"] = against_one_card(rank, row, state, one, dev)
+    log(rank, f"    {cfg.name} ({cfg.n_layers} layers) on 2x2, B=2, routing pinned: {res['2x2']}")
+    del state
+    empty_cache()
+    return res
+
+
+def part_d(rank: int, dev) -> dict:
+    """yi-9b whole, prefill at S=32768 on (1, 4) against one card's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+
+    cfg = yi(48)
+    mesh = mesh_mod.make_debug_mesh(1, 4, device_type=DEVICE_TYPE)
+    arch, cell = cs.arch_shape(cfg, "prefill", 1, PREFILL_SEQ)
+    params, whole = sharded_params(cfg, mesh, dev, keep_whole=rank == 0)
+    batch = {"tokens": cs.train_batch(cfg, dev, np.random.default_rng(cs.MODEL_SEED + 3), 1,
+                                      PREFILL_SEQ)["tokens"]}
+    res = {}
+    if rank == 0:
+        one = steps.make_prefill_step(arch, cell)
+        want = one(whole, batch)
+        sync()
+        start = time.perf_counter()
+        want = one(whole, batch)
+        sync()
+        res["one_card_ms"] = (time.perf_counter() - start) * 1e3
+        del whole
+        empty_cache()
+    dist.barrier()
+    step = steps.make_prefill_step(arch, cell, mesh)
+    launches, offsets = fa.flash_attention_fwd.launches, fa.flash_attention_fwd.offset_launches
+    got = step(params, batch)
+    sync()
+    counts = torch.tensor([fa.flash_attention_fwd.launches - launches,
+                           fa.flash_attention_fwd.offset_launches - offsets], device=dev)
+    gathered = [torch.zeros_like(counts) for _ in range(WORLD)]
+    dist.all_gather(gathered, counts)
+    times = []
+    for _ in range(2):
+        dist.barrier()
+        sync()
+        start = time.perf_counter()
+        step(params, batch)
+        sync()
+        times.append((time.perf_counter() - start) * 1e3)
+    res.update({"mesh": [1, 4], "batch": [1, PREFILL_SEQ], "mesh_ms": times,
+                "launches_per_rank": [int(c[0]) for c in gathered],
+                "offset_launches_per_rank": [int(c[1]) for c in gathered]})
+    if rank == 0:
+        res["closeness"] = dict(zip(("max_abs_err", "tolerance_share", "rel_rms_err"),
+                                    cs.closeness(got, want, cs.WHOLE_MODEL)))
+        res["tolerance"] = cs.WHOLE_MODEL
+        res["ok"] = (res["closeness"]["tolerance_share"] <= 1.0
+                     and res["closeness"]["rel_rms_err"] <= cs.WHOLE_MODEL["rel_rms"]
+                     and all(c == cfg.n_layers for c in res["launches_per_rank"]))
+    log(rank, f"  (d) yi-9b 48 layers prefill S={PREFILL_SEQ} on (1, 4): {res}")
+    del params, got
+    empty_cache()
+    return res
+
+
+def part_e(rank: int, dev) -> dict:
+    """A step on (2, 2), shrink to ranks 0 and 1, a step; against a 2-rank
+    step from the same state distributed afresh."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import elastic
+
+    cfg = yi(CUT)
+    b = 2
+    arch, cell = cs.arch_shape(cfg, "train", b, SEQ)
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type=DEVICE_TYPE)
+    batch = cs.train_batch(cfg, dev, np.random.default_rng(cs.MODEL_SEED + 2), b, SEQ)
+    params = sharded_params(cfg, mesh, dev)[0]
+    with cs.deterministic():
+        params, opt, _ = steps.make_train_step(arch, cell, mesh)(
+            params, cs.opt_at(params, START_STEP), batch)
+    state = {"params": params, "m": opt["m"], "v": opt["v"]}
+    count = opt["step"]
+    whole = tree_map(lambda t: t.full_tensor().cpu(), state)   # on every rank
+    del params, opt
+    sync()
+    start = time.perf_counter()
+    moved, small = elastic.shrink(state, mesh, {2, 3})
+    sync()
+    res = {"shrink_ms": (time.perf_counter() - start) * 1e3}
+    del state
+    empty_cache()
+    if moved is not None:
+        kept = all(torch.equal(a.full_tensor().cpu(), w) for a, w in
+                   zip(tree_leaves(moved), tree_leaves(whole)))
+        fresh = own_shards({key: sh.distribute_tree(tree_map(lambda t: t.to(dev), whole[key]),
+                                                    small) for key in whole})
+        del whole
+        empty_cache()
+        step = steps.make_train_step(arch, cell, small)
+        with cs.deterministic():
+            after = step(moved["params"], {"m": moved["m"], "v": moved["v"], "step": count},
+                         batch)
+            again = step(fresh["params"], {"m": fresh["m"], "v": fresh["v"], "step": count},
+                         batch)
+        equal = float(after[2]["loss"]) == float(again[2]["loss"]) and all(
+            torch.equal(x.to_local(), y.to_local()) for x, y in
+            zip(tree_leaves((after[0], after[1]["m"], after[1]["v"])),
+                tree_leaves((again[0], again[1]["m"], again[1]["v"]))))
+        res.update({"survivors": dict(zip(small.mesh_dim_names, small.shape)), "kept": kept,
+                    "next_step_equal": equal, "loss": float(after[2]["loss"])})
+        del after, again, moved, fresh
+    else:
+        res["evicted"] = True
+        del whole
+    empty_cache()
+    log(rank, f"  (e) shrink 4 -> 2 after a step of yi-9b {CUT} layers: {res}")
+    return res
+
+
+def run(rank: int, port: int, parts: str, out_dir: str, device_type: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    global DEVICE_TYPE, SEQ, PREFILL_SEQ
+    DEVICE_TYPE = device_type
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=WORLD, rank=rank,
+                                timeout=datetime.timedelta(seconds=300), device_id=dev)
+        from repro_torch.kernels import _build
+
+        if rank == 0:
+            _build.build()
+        dist.barrier()
+        _build.build()
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+        SEQ, PREFILL_SEQ = 64, 128
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=WORLD, rank=rank)
+    out = {"world": WORLD, "card": cs.card_line() if rank == 0 and device_type == "cuda"
+           else None}
+    fns = {"a": part_a, "b": part_b, "c": part_c, "d": part_d, "e": part_e}
+    try:
+        for part in parts:
+            t0 = time.perf_counter()
+            log(rank, f"part ({part})")
+            out[part] = fns[part](rank, dev)
+            out[part]["seconds"] = time.perf_counter() - t0
+    finally:
+        if rank == 0:
+            Path(out_dir).mkdir(parents=True, exist_ok=True)
+            Path(out_dir, "sharding.json").write_text(json.dumps(out, default=str))
+        dist.destroy_process_group()
+
+
+def main() -> int:
+    import torch
+    import torch.multiprocessing as mp
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out-dir", default="chiprun_out/sharding")
+    parser.add_argument("--parts", default="abcde")
+    parser.add_argument("--cpu-rehearsal", action="store_true")
+    args = parser.parse_args()
+    device_type = "cpu" if args.cpu_rehearsal else "cuda"
+    if device_type == "cuda" and torch.cuda.device_count() < WORLD:
+        print(f"needs {WORLD} cards, found {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    card = cs.card_line() if device_type == "cuda" else "cpu rehearsal"
+    print(f"card: {card}", flush=True)
+    mp.spawn(run, args=(cs.free_port(), args.parts, args.out_dir, device_type), nprocs=WORLD)
+    out = json.loads(Path(args.out_dir, "sharding.json").read_text())
+    failed = [part for part in args.parts if part in "bc"
+              and not all(row.get("ok", True) for row in out[part].values()
+                          if isinstance(row, dict))]
+    if "d" in args.parts and not out["d"].get("ok"):
+        failed.append("d")
+    if "e" in args.parts and not out["e"].get("next_step_equal"):
+        failed.append("e")
+    print(card)
+    print(json.dumps({**out, "failed": failed}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
