@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port: the erasure-coded data plane, the
 attention layer, the checkpoint plane, the model serving path, the
-training runtime and the sharded steps on a device mesh.
+training runtime, the sharded steps on a device mesh, and the sharded
+decode with the dry-run.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -137,7 +138,26 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    q cut in 4 row blocks, each launched against the whole K/V at its
    offset; the blocks joined equal the unsplit launch bit for bit, and
    each block its plain version with ``q_offset`` (``SAME_ARITHMETIC``).
-9. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
+9. Decode on a device mesh, the dry-run and the roofline, with every
+   launch counter set to 0 again (the path runs none of the kernels:
+   decode attends in einsum in both packages, and the dry-run traces on
+   ``meta`` tensors).  (c) First two processes start, one a cell, that
+   dry-run yi-9b's decode_32k and train_4k on the production (16, 16) mesh
+   (``python -m repro_torch.launch.dryrun``, a fake world of 256 ranks):
+   each prints its roofline line, and a failed cell fails the phase.  (a)
+   While they run, a 4-rank gloo world on the host decodes every cache
+   layout (yi, deepseek-v2's MLA and MoE, zamba2's Mamba2 and shared
+   block, xLSTM, whisper's self and cross caches) at smoke widths, every
+   product in fp32, on meshes (2, 2) and (1, 4): four steps after a
+   seeded prompt, the last at ``cur_len = Smax``, each cache kept on its
+   ``cache_specs`` shards; the logits of every step and every cache leaf
+   within ``MESH_FP32`` of the one-device decode (deepseek-v2, which rounds
+   to bf16 whatever the switch, ``MESH_DECODE_BF16``).  (b) Then a one-rank NCCL
+   world on the card and a (1, 1) mesh: yi-9b whole at phase 6's decode
+   (B=4 over 128 rows), ``SHARDED_DECODE_STEPS`` steps of the sharded serve
+   step against the one-device step from the same params and cache, bit
+   for bit (every step's logits, every cache leaf), and both ms a step.
+10. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
    main path, error, times, bound) and, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -2377,12 +2397,12 @@ def mesh_shrink(rank: int) -> dict:
             "kept": kept, "next_step_equal": equal}
 
 
-def mesh_world(failures: list) -> dict:
-    """8c: the gloo world on the host; the ranks' shard errors added up per
-    leaf.  The ranks are spawned where this process has used the card
-    (autograd's device threads do not survive a fork), and forked where it
-    has not (a rehearsal on the CPU: each rank then starts from this
-    process's modules as they stand)."""
+def host_world(target, what: str) -> dict:
+    """A gloo world of MESH_WORLD ranks on the host running ``target(rank,
+    world, port, results)``; each rank's report by rank.  The ranks are
+    spawned where this process has used the card (autograd's device threads
+    do not survive a fork), and forked where it has not (a rehearsal on the
+    CPU: each rank then starts from this process's modules as they stand)."""
     import multiprocessing
 
     import torch
@@ -2390,8 +2410,7 @@ def mesh_world(failures: list) -> dict:
 
     method = "spawn" if torch.cuda.is_initialized() else "fork"
     results = multiprocessing.get_context(method).SimpleQueue()
-    t0 = time.perf_counter()
-    procs = tmp.start_processes(mesh_rank, args=(MESH_WORLD, free_port(), results),
+    procs = tmp.start_processes(target, args=(MESH_WORLD, free_port(), results),
                                 nprocs=MESH_WORLD, join=False, start_method=method)
     ranks: dict = {}
     done = False
@@ -2400,7 +2419,15 @@ def mesh_world(failures: list) -> dict:
         while not results.empty():
             rank, out = results.get()
             ranks[rank] = out
-    check(len(ranks) == MESH_WORLD, f"8c: {len(ranks)} of {MESH_WORLD} ranks reported")
+    check(len(ranks) == MESH_WORLD, f"{what}: {len(ranks)} of {MESH_WORLD} ranks reported")
+    return ranks
+
+
+def mesh_world(failures: list) -> dict:
+    """8c: the gloo world on the host; the ranks' shard errors added up per
+    leaf."""
+    t0 = time.perf_counter()
+    ranks = host_world(mesh_rank, "8c")
     res = {"seconds": time.perf_counter() - t0, "world": MESH_WORLD, "steps": {}}
     for case, first in ranks[0]["steps"].items():
         moe = case.split()[0] == "deepseek-v2-lite-16b"
@@ -2647,6 +2674,288 @@ def drive_mesh(dev, counters) -> dict:
     return res
 
 
+# -- phase 9: decode on a device mesh, the dry-run and the roofline ------------------------
+
+#: 9a: the host CPU's gloo world decodes every cache layout (GQA, MLA with MoE
+#: layers, Mamba2 with the shared block, xLSTM, whisper's self and cross
+#: caches) at smoke widths on these meshes, every product in fp32
+DECODE_MESH_ARCHS = ("yi-9b", "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-125m",
+                     "whisper-base")
+DECODE_MESH_SHAPES = {"2x2": (2, 2), "1x4": (1, 4)}
+#: B and Smax (a cache dim the rules take for the batch must be the batch:
+#: zamba2's smoke cache has 2 groups of 2 layers); four steps after a prompt
+#: of MESH_DECODE_LENS[0] tokens, the last at cur_len = Smax (the clamped write)
+MESH_DECODE_BATCH, MESH_DECODE_MAX_LEN = 4, 12
+MESH_DECODE_LENS = (9, 10, 11, 12)
+#: deepseek-v2's decode rounds to bf16 whatever the switch (MLA's absorbed
+#: attention casts its softmax weights and latent output, the MoE experts
+#: run bf16 einsums, as in the reference): scores summed in another order
+#: can flip one weight's rounding by one bf16 ulp, which moves a row's output
+#: by at most that fraction (read 2.5e-4 on the CPU); the others MESH_FP32
+MESH_DECODE_BF16 = {"deepseek-v2-lite-16b": 2 ** -8}
+#: 9b: yi-9b whole at phase 6's decode (B=4 over 128 rows, a prompt's rows
+#: drawn from a seeded normal): steps timed on one device and on a (1, 1) mesh
+SHARDED_DECODE_STEPS = 8
+#: 9c: the dry-run's cells, yi-9b on the production (16, 16) mesh, each in a
+#: process of its own (a fake world is process-global)
+DRYRUN_CELLS = ("decode_32k", "train_4k")
+DRYRUN_TIMEOUT = 300
+
+
+def seeded_decode_cache(cfg, dev, b: int, smax: int, prompt: int, seed: int):
+    """A decode cache of (b, smax) rows, its first ``prompt`` rows filled by
+    the one-device decode of seeded tokens (whisper's cross K/V, which a
+    prefill fills, drawn from a seeded normal, its encoder length smax - 2)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    rng = np.random.default_rng(seed)
+    cache = init_cache(cfg, b, smax, device=dev)
+    if cfg.family == "encdec":
+        for key in ("k", "v"):
+            leaf = cache["cross"][key]
+            leaf.copy_(torch.from_numpy(rng.standard_normal(tuple(leaf.shape)).astype(
+                np.float32)))
+        cache["enc_len"].fill_(smax - 2)
+    params = init_params(cfg, seed=MODEL_SEED, device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, prompt))).to(dev)
+    for t in range(prompt):
+        decode_step(params, cfg, cache, {"tokens": tokens[:, t:t + 1], "cur_len": t})
+    return cache
+
+
+def decode_steps(step, params, cache, tokens, lens) -> list:
+    """``step`` at each position of ``lens`` (the cache written in place)."""
+    return [step(params, cache, {"tokens": tokens[:, i:i + 1], "cur_len": t})[0]
+            for i, t in enumerate(lens)]
+
+
+def rel_rms(got, want) -> float:
+    g, w = got.double(), want.double()
+    norm = float(w.norm())
+    return float((g - w).norm()) / norm if norm else float((g - w).norm())
+
+
+def mesh_decode_cases() -> dict:
+    """9a: each family's serve step on each mesh against the one-device step
+    from the same params, cache and tokens: the logits of every step and
+    every cache leaf after the last, gathered whole (a family that raises
+    reports its error)."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.parallel import sharding as sh
+
+    meshes = {key: mesh_mod.make_debug_mesh(*shape, device_type="cpu")
+              for key, shape in DECODE_MESH_SHAPES.items()}
+    cpu = torch.device("cpu")
+    b, smax, lens = MESH_DECODE_BATCH, MESH_DECODE_MAX_LEN, MESH_DECODE_LENS
+    out = {}
+    for name in DECODE_MESH_ARCHS:
+        try:
+            cfg = ARCHS[name].smoke
+            arch, shape = arch_shape(cfg, "decode", b, smax)
+            params = init_params(cfg, seed=MODEL_SEED + 4, device=cpu)
+            cache0 = seeded_decode_cache(cfg, cpu, b, smax, lens[0], MODEL_SEED + 5)
+            tokens = torch.from_numpy(np.random.default_rng(MODEL_SEED + 6).integers(
+                0, cfg.vocab, (b, len(lens))))
+            want_cache = clone_tree(cache0)
+            wants = decode_steps(steps.make_serve_step(arch, shape), params, want_cache,
+                                 tokens, lens)
+            want_leaves = dict(sh.leaves_with_path(want_cache))
+            for key, mesh in meshes.items():
+                specs = sh.cache_specs(cache0, mesh, smax, b)
+                cache = sh.distribute_tree(clone_tree(cache0), mesh, specs)
+                gots = decode_steps(steps.make_serve_step(arch, shape, mesh),
+                                    sh.distribute_tree(params, mesh), cache, tokens, lens)
+                leaves = {path: rel_rms(t.full_tensor() if t.dim() else t, want_leaves[path])
+                          for path, t in sh.leaves_with_path(cache)}
+                worst = max(leaves, key=leaves.get)
+                out[f"{name} {key}"] = {"logits": max(rel_rms(g, w) for g, w in zip(gots, wants)),
+                                        "cache": [worst, leaves[worst]]}
+        except Exception as exc:  # reported, and the phase fails
+            out[name] = {"error": repr(exc)[:400]}
+    return out
+
+
+def decode_rank(rank: int, world: int, port: int, results) -> None:
+    """One rank of 9a's gloo world."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=120))
+    try:
+        with fp32_compute():
+            results.put((rank, mesh_decode_cases()))
+    finally:
+        dist.destroy_process_group()
+
+
+def decode_world(failures: list) -> dict:
+    """9a: the gloo world on the host; each rank's cases against their limits."""
+    t0 = time.perf_counter()
+    ranks = host_world(decode_rank, "9a")
+    res = {"seconds": time.perf_counter() - t0, "world": MESH_WORLD, "cases": ranks[0]}
+    for rank, cases in ranks.items():
+        for case, row in cases.items():
+            limit = MESH_DECODE_BF16.get(case.split()[0], MESH_FP32)
+            if "error" in row or row["logits"] > limit or row["cache"][1] > limit:
+                failures.append(f"9a sharded decode {case} (rank {rank}): {row}, limit {limit}")
+    return res
+
+
+def sharded_decode_main(dev, failures: list) -> dict:
+    """9b: a one-rank world on this device and a (1, 1) mesh: yi-9b whole at
+    phase 6's decode, the sharded serve step against the one-device step
+    from the same params and cache, under deterministic algorithms, bit for
+    bit (the logits of every step, every cache leaf); both ms a step."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.parallel import sharding as sh
+
+    cfg = model_configs()[MAIN_ARCH]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    extra = {"device_id": torch.device("cuda", torch.cuda.current_device())} \
+        if dev.type == "cuda" else {}
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, **extra)
+    try:
+        mesh = mesh_mod.make_debug_mesh(1, 1, device_type=dev.type)
+        arch, shape = arch_shape(cfg, "decode", DECODE_BATCH, DECODE_MAX_LEN)
+        params = init_params(cfg, seed=MODEL_SEED, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 9)
+        cache0 = init_cache(cfg, DECODE_BATCH, DECODE_MAX_LEN, device=dev)
+        for leaf in tree_leaves(cache0):       # the prompt's rows, seeded
+            leaf[:, :, :DECODE_PROMPT].copy_(torch.randn(
+                leaf[:, :, :DECODE_PROMPT].shape, generator=gen, device=dev))
+        lens = range(DECODE_PROMPT, DECODE_PROMPT + SHARDED_DECODE_STEPS)
+        tokens = torch.from_numpy(np.random.default_rng(MODEL_SEED + 9).integers(
+            0, cfg.vocab, (DECODE_BATCH, len(lens)))).to(dev)
+        # on one rank a shard is the whole tensor: the same 35 GB of params
+        # serve both runs (distribute_tensor would copy every split leaf)
+        placed = sh.spec_map(lambda t, spec: DTensor.from_local(
+            t, mesh, sh.placements(spec, mesh), run_check=False), params,
+            sh.param_specs(params, mesh))
+        runs = {"one_device": (steps.make_serve_step(arch, shape), params, clone_tree(cache0)),
+                "mesh": (steps.make_serve_step(arch, shape, mesh), placed,
+                         sh.distribute_tree(clone_tree(cache0), mesh,
+                                            sh.cache_specs(cache0, mesh, DECODE_MAX_LEN,
+                                                           DECODE_BATCH)))}
+        out, times, nondeterministic = {}, {}, set()
+        for key, (step, p, cache) in runs.items():
+            times[key] = []
+            logits = []
+            with deterministic() as ops:
+                for i, t in enumerate(lens):
+                    start = time.perf_counter()
+                    logits.append(step(p, cache, {"tokens": tokens[:, i:i + 1], "cur_len": t})[0])
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    times[key].append((time.perf_counter() - start) * 1e3)
+            nondeterministic |= set(ops)
+            out[key] = (logits, [t.to_local() if hasattr(t, "to_local") else t
+                                 for t in tree_leaves(cache)])
+        (want, want_cache), (got, got_cache) = out["one_device"], out["mesh"]
+        res = {"name": cfg.name, "layers": cfg.n_layers, "mesh": [1, 1], "backend": backend,
+               "batch": [DECODE_BATCH, DECODE_MAX_LEN], "steps": len(lens),
+               "logits_bitwise": all(torch.equal(g, w) for g, w in zip(got, want)),
+               "cache_bitwise": all(torch.equal(g, w) for g, w in zip(got_cache, want_cache)),
+               "step_ms": times, "nondeterministic_ops": sorted(nondeterministic),
+               "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+        for key in runs:
+            res[f"{key}_step_ms"] = statistics.median(times[key][1:])
+        del runs, out, params, placed, cache0
+    finally:
+        dist.destroy_process_group()
+    if not (res["logits_bitwise"] and res["cache_bitwise"] and res["finite"]):
+        failures.append(f"9b sharded decode on (1, 1) differs from the one-device decode: {res}")
+    return res
+
+
+def start_dryrun() -> tuple[list, str]:
+    """9c: one dry-run process a cell of DRYRUN_CELLS, all started at once."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_TORCH_DRYRUN_DIR=out_dir)
+    procs = [subprocess.Popen([sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+                               "--arch", MAIN_ARCH, "--shape", shape], env=env, cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for shape in DRYRUN_CELLS]
+    return procs, out_dir
+
+
+def finish_dryrun(procs: list, out_dir: str, failures: list) -> list[dict]:
+    """9c: each dry-run process's cell line and its JSON; a cell that failed
+    or did not finish within DRYRUN_TIMEOUT fails the phase (and its process
+    is ended)."""
+    rows = []
+    for shape, proc in zip(DRYRUN_CELLS, procs):
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            text += f"\n(ended after {DRYRUN_TIMEOUT} s)"
+        lines = [line for line in text.splitlines() if line.startswith("[")]
+        for line in lines:
+            print(f"  9c {line}", flush=True)
+        path = Path(out_dir) / f"{MAIN_ARCH}__{shape}__pod16x16.json"
+        if proc.returncode != 0 or "ALL DRY-RUN CELLS PASSED" not in text or not path.exists():
+            failures.append(f"9c dry-run {MAIN_ARCH} x {shape}: rc {proc.returncode}, "
+                            f"{text[-1500:]}")
+            continue
+        rows.append(json.loads(path.read_text()))
+    return rows
+
+
+def drive_decode_mesh(dev) -> dict:
+    """Phase 9 (see the module's docstring): 9c's processes first, then 9a on
+    the host and 9b on the card while they run; fails after the last if any
+    check failed."""
+    import torch
+
+    failures: list[str] = []
+    procs, out_dir = start_dryrun()
+    try:
+        res = {"world": decode_world(failures)}
+        for case, row in res["world"]["cases"].items():
+            print(f"  9a {case}: {row}", flush=True)
+        print(f"  9a: {res['world']['seconds']:.1f} s, limit {MESH_FP32} relative RMS "
+              f"({MESH_DECODE_BF16} rounded in bf16)", flush=True)
+        res["main"] = main = sharded_decode_main(dev, failures)
+        print(f"  9b {main['name']} ({main['layers']} layers) decode on a (1, 1) "
+              f"{main['backend']} mesh, B={DECODE_BATCH} over {DECODE_MAX_LEN} rows: bit for "
+              f"bit logits {main['logits_bitwise']}, cache {main['cache_bitwise']}; step "
+              f"{main['mesh_step_ms']:.3f} ms sharded, {main['one_device_step_ms']:.3f} ms "
+              f"one-device; nondeterministic ops {main['nondeterministic_ops']}", flush=True)
+        res["dryrun"] = finish_dryrun(procs, out_dir, failures)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    check(not failures, "phase 9 failed:\n  " + "\n  ".join(failures))
+    return res
+
+
 def count_launches(rows: list[dict], counters: dict, path: str) -> None:
     """Set each row's launches from its counter and fail on a kernel the
     path did not launch."""
@@ -2815,10 +3124,21 @@ def main() -> int:
           f"{offset_row['launches']} with a q_offset", flush=True)
     phase_done("8")
 
+    phase("9", "decode on a device mesh, the dry-run and the roofline")
+    for fn in counters.values():
+        fn.launches = 0
+    decode_mesh = drive_decode_mesh(dev)
+    torch.cuda.synchronize()
+    # decode attends in einsum in both packages and the dry-run traces on
+    # meta tensors: this path launches none of the kernels
+    print(f"  launches on the decode-mesh path: "
+          f"{ {name: fn.launches for name, fn in counters.items()} }", flush=True)
+    phase_done("9")
+
     print(json.dumps({"cluster": cluster, "attention": attention, "checkpoint": checkpoint,
                       "models": models, "training": training, "mesh": mesh,
-                      "flash_build": flash_build, "gf_build": gf_build, "copy": copy,
-                      "phase_seconds": seconds}))
+                      "decode_mesh": decode_mesh, "flash_build": flash_build,
+                      "gf_build": gf_build, "copy": copy, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": dataplane_rows + attention_rows + [offset_row]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

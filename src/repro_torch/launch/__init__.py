@@ -1,9 +1,14 @@
-"""Launchers of the port: ``python -m repro_torch.launch.train`` and
-``python -m repro_torch.launch.serve``; the step functions they and the
+"""Launchers of the port: ``python -m repro_torch.launch.train``,
+``python -m repro_torch.launch.serve`` and the dry-run,
+``python -m repro_torch.launch.dryrun``; the step functions they and the
 smoke run build, the cells' input shapes and shardings, in
-:mod:`repro_torch.launch.steps`; the meshes in :mod:`repro_torch.launch.mesh`."""
+:mod:`repro_torch.launch.steps`; the meshes in :mod:`repro_torch.launch.mesh`;
+a step's roofline terms, counted by running it, in
+:mod:`repro_torch.launch.roofline`."""
 
+from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.launch.roofline import Roofline, analyze_step, model_flops_for_cell
 from repro_torch.launch.steps import (
     batch_shardings,
     batch_struct,
@@ -22,6 +27,8 @@ from repro_torch.launch.steps import (
 )
 
 __all__ = [
+    "Roofline",
+    "analyze_step",
     "batch_shardings",
     "batch_struct",
     "cache_struct",
@@ -34,8 +41,10 @@ __all__ = [
     "make_step",
     "make_train_step",
     "model_constraints",
+    "model_flops_for_cell",
     "opt_state_struct",
     "params_struct",
+    "run_cell",
     "sharded_loss_and_grads",
     "step_shardings",
 ]

@@ -12,15 +12,18 @@ as in the reference) and updates params and moments in place
 (:func:`repro_torch.optim.adamw.adamw_update`).  Prefill and serve run under
 ``no_grad``: on the card a prefill's self-attention takes the flash kernel.
 
-``mesh`` is None (one device) or a (data, model) ``DeviceMesh``.  On a mesh
-the train and prefill steps take params and moments as DTensors placed by
-the rules (:func:`repro_torch.parallel.sharding.distribute_tree`) and the
-batch as DTensors placed by :func:`batch_shardings` (or whole on every
-rank), compute on the local shards with the model's explicit collectives
-(:mod:`repro_torch.parallel.spmd`, under :func:`model_constraints`), and
-update every shard in place, so each leaf keeps its placement.  The
-sharded decode waits for the next slice of the port: ``make_serve_step``
-takes a one-rank mesh as one device and raises on a larger one.
+``mesh`` is None (one device) or a (data, model) or (pod, data, model)
+``DeviceMesh``.  On a mesh the steps take params and moments as DTensors
+placed by the rules (:func:`repro_torch.parallel.sharding.distribute_tree`)
+and the batch as DTensors placed by :func:`batch_shardings` (or whole on
+every rank), compute on the local shards with the model's explicit
+collectives (:mod:`repro_torch.parallel.spmd`, under
+:func:`model_constraints`), and update every shard in place, so each leaf
+keeps its placement.  The serve step takes the cache as DTensors placed by
+:func:`step_shardings`' decode branch (``cache_specs``: batch over data,
+the model axis on the head vector or a state's last dim), writes each
+rank's shard in place and attends it where it lies; it returns the whole
+batch's logits and the cache.
 
 ``params_struct``, ``opt_state_struct``, ``cache_struct`` and
 ``batch_struct`` are trees of ``meta`` tensors (shapes and dtypes, no
@@ -54,6 +57,10 @@ def _sharded(mesh) -> bool:
     if not hasattr(mesh, "get_group"):
         raise TypeError(f"{mesh!r} has no process group: pass a DeviceMesh "
                         "(launch.mesh.make_debug_mesh) or None")
+    if tuple(mesh.mesh_dim_names or ()) not in (("data", "model"), ("pod", "data", "model")):
+        raise NotImplementedError(
+            f"the sharded steps take a ('data', 'model') or ('pod', 'data', 'model') "
+            f"DeviceMesh, got axes {mesh.mesh_dim_names}")
     return True
 
 
@@ -119,10 +126,15 @@ def cache_struct(arch: ArchConfig, shape: ShapeConfig) -> Any:
     return M.init_cache(arch.model, shape.global_batch, shape.seq_len, device="meta")
 
 
-def input_specs(arch: ArchConfig, shape_name: str) -> dict[str, Any]:
+def _shape_of(shape: str | ShapeConfig) -> ShapeConfig:
+    """A cell's shape by its name in ``SHAPES``, or as given."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def input_specs(arch: ArchConfig, shape_name: str | ShapeConfig) -> dict[str, Any]:
     """All inputs of a cell's step as ``meta`` tensors: params (+opt/cache)
     and batch."""
-    shape = SHAPES[shape_name]
+    shape = _shape_of(shape_name)
     ps = params_struct(arch)
     out = {"params": ps, "batch": batch_struct(arch, shape)}
     if shape.kind == "train":
@@ -197,9 +209,9 @@ def model_constraints(arch: ArchConfig, shape: ShapeConfig, mesh):
     return resid, ep, attn
 
 
-def step_shardings(arch: ArchConfig, shape_name: str, mesh):
+def step_shardings(arch: ArchConfig, shape_name: str | ShapeConfig, mesh):
     """(in_shardings, out_shardings) trees for the cell's step function."""
-    shape = SHAPES[shape_name]
+    shape = _shape_of(shape_name)
     ps = params_struct(arch)
     p_shard = sh.param_shardings(ps, mesh)
     b_shard = batch_shardings(arch, shape, mesh)
@@ -228,19 +240,19 @@ def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def _local_batch(batch: dict, shardings: dict) -> dict:
+def _local_batch(batch: dict, shardings: dict, ctx) -> dict:
     """This rank's rows of each batch entry: a DTensor's local shard, or a
-    whole tensor cut as its sharding places it."""
+    whole tensor cut as its sharding places it (over the step context's
+    data axis)."""
     out = {}
+    data = ctx.axes["data"]
     for key, value in batch.items():
         if hasattr(value, "to_local"):
             out[key] = value.to_local()
             continue
         spec = shardings[key].spec
         if len(spec) and spec[0] is not None:
-            ctx_mesh = shardings[key].mesh
-            rank = ctx_mesh.get_local_rank("data")
-            value = value.chunk(ctx_mesh.size(0), 0)[rank]
+            value = value.chunk(data.size, 0)[data.rank]
         out[key] = value
     return out
 
@@ -292,8 +304,8 @@ def _sharded_train_step(arch: ArchConfig, shape: ShapeConfig, mesh, adam: AdamWC
     def train_step(params, opt_state, batch):
         specs = sh.param_specs(params, mesh)
         local = tree_map(_local, params)
-        loss, grads = sharded_loss_and_grads(local, cfg, _local_batch(batch, b_shard), specs,
-                                             constraints)
+        loss, grads = sharded_loss_and_grads(local, cfg, _local_batch(batch, b_shard, ctx),
+                                             specs, constraints)
         gnorm = ctx.global_norm(grads, specs)
         lr_scale = warmup_cosine(opt_state["step"])
         local_opt = {"m": tree_map(_local, opt_state["m"]), "v": tree_map(_local, opt_state["v"]),
@@ -332,7 +344,7 @@ def _sharded_prefill_step(arch: ArchConfig, shape: ShapeConfig, mesh):
     def prefill_step(params, batch):
         local = tree_map(_local, params)
         with ctx.bind(local, sh.param_specs(params, mesh)):
-            hidden = M.forward(local, cfg, _local_batch(batch, b_shard), ep_spec=ep,
+            hidden = M.forward(local, cfg, _local_batch(batch, b_shard, ctx), ep_spec=ep,
                                resid=resid, attn_specs=attn)
             unembed = ctx.gather(local["unembed"])["w"]
         # the last position lies on the last model rank
@@ -344,11 +356,9 @@ def _sharded_prefill_step(arch: ArchConfig, shape: ShapeConfig, mesh):
 
 
 def make_serve_step(arch: ArchConfig, shape: ShapeConfig, mesh=None):
-    if _sharded(mesh) and mesh.size() > 1:
-        raise NotImplementedError(
-            "a sharded decode (serve_step over cache_specs) is the next slice of the "
-            "port; pass mesh=None or a one-rank mesh")
     cfg = arch.model
+    if _sharded(mesh):
+        return _sharded_serve_step(arch, shape, mesh)
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
@@ -357,9 +367,59 @@ def make_serve_step(arch: ArchConfig, shape: ShapeConfig, mesh=None):
     return serve_step
 
 
-def make_step(arch: ArchConfig, shape_name: str, mesh=None) -> Any:
+def _check_cache_specs(cfg, shape: ShapeConfig, specs: Any, batch_split: bool) -> None:
+    """The decode reads each cache shard's rows as the tokens' rows: a leaf
+    whose data axis lies on another dim than its batch (the rules find the
+    batch by its size, which a stacked axis may share), or whose batch is
+    placed otherwise than the tokens', is refused.  A leaf's batch dim is
+    the one that grows with the batch."""
+    grown = M.init_cache(cfg, shape.global_batch + 1, shape.seq_len, device="meta")
+    struct = M.init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+
+    def one(leaf, more, spec):
+        batch_dims = [d for d in range(leaf.dim()) if leaf.shape[d] != more.shape[d]]
+        data = [d for d, e in enumerate(spec) if e is not None and e != "model"]
+        if data != (batch_dims if batch_split else []):
+            raise NotImplementedError(
+                f"cache leaf {tuple(leaf.shape)} placed {spec}: its data axis is not on "
+                f"its batch dim {batch_dims}, as the tokens' rows are split")
+
+    sh.spec_map(one, struct, grown, specs)
+
+
+def _sharded_serve_step(arch: ArchConfig, shape: ShapeConfig, mesh):
+    """The decode on a mesh (the reference passes decode no constraint, so
+    the context splits the batch alone): each rank runs ``decode_step`` on
+    its rows and cache shards, each layer's weights gathered where it is
+    used."""
+    from repro_torch.parallel.spmd import StepContext
+
+    cfg = arch.model
+    b_shard = batch_shardings(arch, shape, mesh)
+    bspec = b_shard["tokens"].spec[0]
+    ctx = StepContext(mesh, batch_split=bspec is not None, seq_split=False)
+    resid = _ns(mesh, P(bspec, None, None), ctx)
+    _check_cache_specs(cfg, shape, sh.cache_specs(cache_struct(arch, shape), mesh,
+                                                   shape.seq_len, shape.global_batch),
+                       bspec is not None)
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        local = tree_map(_local, params)
+        if any(leaf.dim() and not hasattr(leaf, "to_local") for leaf in tree_leaves(cache)):
+            raise TypeError("the sharded decode writes the cache in place: pass it as "
+                            "DTensors placed by step_shardings")
+        with ctx.bind(local, sh.param_specs(params, mesh)):
+            logits, _ = M.decode_step(local, cfg, tree_map(_local, cache),
+                                      _local_batch(batch, b_shard, ctx), resid=resid)
+        return ctx.gather_rows(logits), cache
+
+    return serve_step
+
+
+def make_step(arch: ArchConfig, shape_name: str | ShapeConfig, mesh=None) -> Any:
     """The cell's step function by shape kind."""
-    shape = SHAPES[shape_name]
+    shape = _shape_of(shape_name)
     if shape.kind == "train":
         return make_train_step(arch, shape, mesh)
     if shape.kind == "prefill":

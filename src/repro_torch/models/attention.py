@@ -26,7 +26,13 @@ Decode attention computes scores against the full cache with a length
 mask (cost honestly proportional to the cache length).  Unlike the
 reference, which returns updated copies, the decode functions write the
 new token into the caches in place (no copy of a 32 K cache per token)
-and return them.
+and return them; ``cur_len`` is taken as a 0-d tensor (shape-static: a
+step traces on ``meta`` tensors).  On a mesh (``resid``: the sharded
+decode's batch sharding) the caches are this rank's shards, the model
+axis on each head's vector (or on the KV heads, or the MLA latent and
+rope dims): the token's q, k and v are computed and rotated whole, the
+rank writes its slice, its partial scores are summed over model before
+the mask, and the output is gathered over model.  No cache is gathered.
 """
 
 from __future__ import annotations
@@ -272,17 +278,63 @@ def gqa_apply(
     return dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
 
 
-def _position(cur_len, device) -> tuple[int, torch.Tensor]:
-    """``cur_len`` (int or 0-d tensor) as an int and as (1, 1) positions."""
-    t = int(cur_len)
-    return t, torch.full((1, 1), t, dtype=torch.int64, device=device)
+def _position(cur_len, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cur_len`` (int or 0-d tensor) as a 0-d int64 tensor on ``device``
+    and as (1, 1) positions: shape-static, so a decode step traces on
+    ``meta`` tensors and reads no value back to the host."""
+    t = torch.as_tensor(cur_len, dtype=torch.int64, device=device).reshape(())
+    return t, t.reshape(1, 1)
 
 
-def _cache_slot(t: int, smax: int) -> int:
+def _cache_slot(t: torch.Tensor, smax: int) -> torch.Tensor:
     """The cache row a token at position ``t`` is written to: ``t`` clamped
     into ``[0, smax - 1]``, as ``jax.lax.dynamic_update_slice`` clamps its
     start, so a full cache overwrites its last row."""
-    return min(max(t, 0), smax - 1)
+    return t.clamp(0, smax - 1)
+
+
+def _write_row(cache: torch.Tensor, slot, new: torch.Tensor) -> None:
+    """``new`` (B, 1, ...) into row ``slot`` of ``cache`` (B, Smax, ...), in place."""
+    index = torch.as_tensor(slot, dtype=torch.int64, device=cache.device).reshape(1)
+    cache.index_copy_(1, index, new.to(cache.dtype))
+
+
+def _decode_qkv(p, x, pos, n_heads, n_kv_heads, head_dim, rope_theta, sp=None, split=None):
+    """One token's grouped, scaled q (B, 1, Hkv, rep, D) and its k and v
+    (B, 1, Hkv, D), rotated whole; on a mesh whose model axis splits the
+    cache (``split``: -1 for the head vector, -2 for the KV heads), this
+    rank's part of each.  RoPE pairs dim i with dim i + D/2, so a slice of
+    the head vector is cut only after the rotation."""
+    b = x.shape[0]
+    q = dense_apply(p["wq"], x).reshape(b, 1, n_heads, head_dim)
+    k = dense_apply(p["wk"], x).reshape(b, 1, n_kv_heads, head_dim)
+    v = dense_apply(p["wv"], x).reshape(b, 1, n_kv_heads, head_dim)
+    if rope_theta > 0:
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    qg = _scaled(q, 1.0 / math.sqrt(head_dim)).reshape(
+        b, 1, n_kv_heads, n_heads // n_kv_heads, head_dim)
+    if split is not None:
+        qg = sp.own_model(qg, -1 if split == -1 else -3)
+        k, v = sp.own_model(k, split), sp.own_model(v, split)
+    return qg, k, v
+
+
+def _grouped_attend(qg, cache_k, cache_v, valid, sp=None, split=None) -> torch.Tensor:
+    """softmax(q . k) v of grouped q (B, 1, Hkv, rep, D) against a cache
+    (B, S, Hkv, D), keys where ``valid`` (S,) holds; grouped GQA, never
+    the head-repeated cache.  On a mesh the cache is this rank's shard:
+    split on D, the partial scores are summed over model before the mask;
+    the output (B, 1, Hkv, rep, Dv) is gathered whole over model."""
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), cache_k.float())
+    if split == -1:
+        scores = sp.sum_over_model(scores)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(cache_v.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", w.float(), cache_v.float()).to(cache_v.dtype)
+    if split is not None:
+        out = sp.gather_model(out, -1 if split == -1 else -3)
+    return out
 
 
 def gqa_decode(
@@ -295,30 +347,51 @@ def gqa_decode(
     n_kv_heads: int,
     head_dim: int,
     rope_theta: float = 1e4,
+    resid=None,                         # the sharded decode's batch sharding
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token decode; returns (out, cache_k, cache_v)."""
+    """One-token decode; returns (out, cache_k, cache_v).  On a mesh the
+    caches are this rank's shards (``cache_specs``: the model axis on the
+    head vector, or on the KV heads), written and attended where they lie."""
     b = x.shape[0]
     smax = cache_k.shape[1]
     t, pos = _position(cur_len, x.device)
-    q = dense_apply(p["wq"], x).reshape(b, 1, n_heads, head_dim)
-    k = dense_apply(p["wk"], x).reshape(b, 1, n_kv_heads, head_dim)
-    v = dense_apply(p["wv"], x).reshape(b, 1, n_kv_heads, head_dim)
-    if rope_theta > 0:
-        q = apply_rope(q, pos, rope_theta)
-        k = apply_rope(k, pos, rope_theta)
+    sp = spmd.context(resid)
+    split = None if sp is None else sp.model_dim(cache_k, (n_kv_heads, head_dim))
+    qg, k, v = _decode_qkv(p, x, pos, n_heads, n_kv_heads, head_dim, rope_theta, sp, split)
     slot = _cache_slot(t, smax)
-    cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
-    cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
-    # grouped GQA: never materialize the head-repeated cache
-    rep = n_heads // n_kv_heads
-    qg = _scaled(q, 1.0 / math.sqrt(head_dim)).reshape(b, 1, n_kv_heads, rep, head_dim)
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), cache_k.float())
+    _write_row(cache_k, slot, k)
+    _write_row(cache_v, slot, v)
     valid = torch.arange(smax, device=x.device) <= t
-    scores = scores.masked_fill(~valid, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(cache_v.dtype)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", w.float(), cache_v.float()).to(cache_v.dtype)
+    out = _grouped_attend(qg, cache_k, cache_v, valid, sp, split)
     out = dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim))
     return out, cache_k, cache_v
+
+
+def cross_decode(
+    p: Params,
+    x: torch.Tensor,                    # (B, 1, d)
+    cache_k: torch.Tensor,              # (B, S_enc, Hkv, D): the encoder's K/V
+    cache_v: torch.Tensor,
+    enc_len,                            # the encoder positions filled
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    resid=None,
+) -> torch.Tensor:
+    """One token's cross-attention against the static encoder K/V cache
+    (whisper's decoder); on a mesh against this rank's shard of it, as
+    :func:`gqa_decode`."""
+    b = x.shape[0]
+    sp = spmd.context(resid)
+    split = None if sp is None else sp.model_dim(cache_k, (n_kv_heads, head_dim))
+    q = dense_apply(p["wq"], x).reshape(b, 1, n_heads, head_dim)
+    qg = _scaled(q, 1.0 / math.sqrt(head_dim)).reshape(
+        b, 1, n_kv_heads, n_heads // n_kv_heads, head_dim)
+    if split is not None:
+        qg = sp.own_model(qg, -1 if split == -1 else -3)
+    valid = torch.arange(cache_k.shape[1], device=x.device) < enc_len
+    out = _grouped_attend(qg, cache_k, cache_v, valid, sp, split)
+    return dense_apply(p["wo"], out.reshape(b, 1, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -404,38 +477,59 @@ def mla_decode(
     qk_rope: int,
     v_head: int,
     rope_theta: float = 1e4,
+    resid=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Matrix-absorbed MLA decode: attention in the compressed space.
 
     The cache stores only (kv_lora + qk_rope) per token; the per-step
-    up-projections are absorbed into q and the output.
+    up-projections are absorbed into q and the output.  On a mesh the
+    caches are this rank's shards, the model axis on the latent dim and on
+    the rope dim: both score terms contract over a split dim, so their
+    partial sums take one all-reduce over model, and the output is gathered
+    in latent space before ``w_uv``.
     """
     b = x.shape[0]
     smax = cache_c.shape[1]
     t, pos = _position(cur_len, x.device)
+    sp = spmd.context(resid)
+    split_c = None if sp is None else sp.model_dim(cache_c, (kv_lora,))
+    split_r = None if sp is None else sp.model_dim(cache_kr, (qk_rope,))
     q = dense_apply(p["wq"], x).reshape(b, 1, n_heads, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     q_rope = apply_rope(q_rope, pos, rope_theta)
     dkv = dense_apply(p["w_dkv"], x)
     c_new, kr_new = dkv[..., :kv_lora], dkv[..., kv_lora:]
     kr_new = apply_rope(kr_new[..., None, :], pos, rope_theta)[..., 0, :]
-    slot = _cache_slot(t, smax)
-    cache_c[:, slot:slot + 1] = c_new.to(cache_c.dtype)
-    cache_kr[:, slot:slot + 1] = kr_new.to(cache_kr.dtype)
     # absorb W_uk into the query: q_c[h] = q_nope[h] @ W_uk[h]^T  (B,1,H,kv_lora)
     w_uk = p["w_uk"]["w"].reshape(kv_lora, n_heads, qk_nope)
     q_c = _bf16_einsum("bqhn,lhn->bqhl", q_nope, w_uk)
+    if split_c is not None:
+        c_new, q_c = sp.own_model(c_new, -1), sp.own_model(q_c, -1)
+    if split_r is not None:
+        kr_new, q_rope = sp.own_model(kr_new, -1), sp.own_model(q_rope, -1)
+    slot = _cache_slot(t, smax)
+    _write_row(cache_c, slot, c_new)
+    _write_row(cache_kr, slot, kr_new)
     scale = 1.0 / math.sqrt(qk_nope + qk_rope)
     c16 = cache_c.to(torch.bfloat16).float()
-    scores = (
-        torch.einsum("bqhl,bkl->bhqk", q_c.float(), c16)
-        + torch.einsum("bqhr,bkr->bhqk", q_rope.to(torch.bfloat16).float(),
+    s_c = torch.einsum("bqhl,bkl->bhqk", q_c.float(), c16)
+    s_r = torch.einsum("bqhr,bkr->bhqk", q_rope.to(torch.bfloat16).float(),
                        cache_kr.to(torch.bfloat16).float())
-    ) * scale
+    if split_c is not None and split_r is not None:
+        scores = sp.sum_over_model(s_c + s_r)
+    else:
+        if split_c is not None:
+            s_c = sp.sum_over_model(s_c)
+        if split_r is not None:
+            s_r = sp.sum_over_model(s_r)
+        scores = s_c + s_r
+    scores = scores * scale
     valid = torch.arange(smax, device=x.device) <= t
     scores = scores.masked_fill(~valid, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out_c = _bf16_einsum("bhqk,bkl->bqhl", w, cache_c)              # (B,1,H,kv_lora)
+    if split_c is not None:
+        out_c = sp.gather_model(out_c, -1)
     w_uv = p["w_uv"]["w"].reshape(kv_lora, n_heads, v_head)
     out = _bf16_einsum("bqhl,lhv->bqhv", out_c, w_uv)
     return (

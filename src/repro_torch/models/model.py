@@ -36,10 +36,14 @@ shards, the batch rows are this rank's, and the residual stream holds the
 rank's slice of the sequence; every module gathers what it needs where it
 uses it, and ``loss_fn`` returns the rank's share of the mean.  With none
 given, the model runs on one device as before.
-Decode writes every attention cache and SSM state in place and returns the cache; ``decode_step`` takes
-``cur_len`` as an int or a 0-d tensor and turns it into an int once, so a
-caller that passes an int (the serving loop does) never waits on the
-device for it.
+Decode writes every attention cache and SSM state in place and returns
+the cache; ``decode_step`` takes ``cur_len`` as an int or a 0-d tensor and
+turns it into a 0-d tensor on the model's device once, so no step reads a
+value back to the host and a step traces on ``meta`` tensors (the
+dry-run).  On a mesh ``decode_step`` takes ``resid``, the sharded decode's
+batch sharding: the caches are then this rank's shards as ``cache_specs``
+places them (:mod:`repro_torch.models.attention` attends them where they
+lie).
 """
 
 from __future__ import annotations
@@ -504,83 +508,121 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     raise ValueError(cfg.family)
 
 
-def decode_step(params: Params, cfg: ModelConfig, cache, batch: dict) -> tuple[torch.Tensor, Any]:
+def decode_step(params: Params, cfg: ModelConfig, cache, batch: dict,
+                resid=None) -> tuple[torch.Tensor, Any]:
     """One-token decode: batch = {"tokens": (B, 1), "cur_len": int or 0-d}.
 
-    Returns fp32 logits (B, 1, vocab) and the cache, updated in place."""
-    tokens, cur_len = batch["tokens"], int(batch["cur_len"])
-    x = embed_apply(params["embed"], tokens)
+    Returns fp32 logits (B, 1, vocab) and the cache, updated in place.  On
+    a mesh (``resid``: the sharded decode's batch sharding, whose context
+    has the params bound) ``params`` and ``cache`` are this rank's shards
+    and ``tokens`` its rows: each layer's weights are gathered whole where
+    they are used, the caches written and attended where they lie, and the
+    logits are this rank's rows."""
+    tokens = batch["tokens"]
+    x = embed_apply(tf.whole_layer(params["embed"], resid), tokens)
+    cur_len = torch.as_tensor(batch["cur_len"], dtype=torch.int64, device=x.device)
     if cfg.family in ("dense", "moe"):
         dense_cfg = dataclasses.replace(cfg, moe_experts=0)
         for lp, cl in zip(params.get("first_layers", []), cache.get("first", [])):
-            x, _ = tf.decoder_layer_decode(lp, x, cl, cur_len, dense_cfg)
+            x, _ = tf.decoder_layer_decode(lp, x, cl, cur_len, dense_cfg, resid)
         x, _ = tf.scan_stack_decode(
             params["layers"], x, cache["scan"], cur_len,
-            lambda lp, h, cl, t: tf.decoder_layer_decode(lp, h, cl, t, cfg))
+            lambda lp, h, cl, t: tf.decoder_layer_decode(lp, h, cl, t, cfg, resid),
+            constraint=resid)
     elif cfg.family == "hybrid":
-        x = _decode_hybrid(params, cfg, cache, x, cur_len)
+        x = _decode_hybrid(params, cfg, cache, x, cur_len, resid)
     elif cfg.family == "xlstm":
-        for i, (kind, blk) in enumerate(zip(_xlstm_kinds(cfg), params["blocks"])):
-            h = rmsnorm_apply(blk["ln"], x, cfg.norm_eps)
-            if kind == "m":
-                y, cache[i] = xl.mlstm_decode(blk["p"], h, cache[i], cfg.n_heads, cfg.xlstm_pf)
-            else:
-                y, cache[i] = xl.slstm_decode(blk["p"], h, cache[i], cfg.n_heads)
-            x = x + y
+        x = _decode_xlstm(params, cfg, cache, x, resid)
     elif cfg.family == "encdec":
-        x = _decode_encdec(params, cfg, cache, x, cur_len)
+        x = _decode_encdec(params, cfg, cache, x, cur_len, resid)
     else:
         raise ValueError(cfg.family)
-    x = rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
-    logits = dense_apply(params["unembed"], x).float()
+    x = rmsnorm_apply(tf.whole_layer(params["ln_f"], resid), x, cfg.norm_eps)
+    logits = dense_apply(tf.whole_layer(params["unembed"], resid), x).float()
     return logits, cache
 
 
-def _decode_hybrid(params, cfg: ModelConfig, cache, x, cur_len: int):
+def _decode_xlstm(params, cfg: ModelConfig, cache, x, resid=None):
+    """The blocks' one-step recurrences.  On a mesh each block's state (a
+    few MB a row) is gathered whole over model, stepped by the one-device
+    code, and this rank's slice written back into its shards: ``cache_specs``
+    splits an mLSTM block's C, n and m along different dims."""
+    sp = spmd.context(resid)
+    di = int(cfg.d_model * cfg.xlstm_pf)
+    hd = di // cfg.n_heads
+    for i, (kind, blk) in enumerate(zip(_xlstm_kinds(cfg), params["blocks"])):
+        blk = tf.whole_layer(blk, resid)
+        h = rmsnorm_apply(blk["ln"], x, cfg.norm_eps)
+        state, dims = cache[i], None
+        if sp is not None:
+            wholes = (((cfg.n_heads, hd, hd), (cfg.n_heads, hd), (cfg.n_heads,)) if kind == "m"
+                      else ((cfg.d_model,),) * 4)
+            state, dims = zip(*(sp.whole_state(s, w) for s, w in zip(cache[i], wholes)))
+        if kind == "m":
+            y, new = xl.mlstm_decode(blk["p"], h, tuple(state), cfg.n_heads, cfg.xlstm_pf)
+        else:
+            y, new = xl.slstm_decode(blk["p"], h, tuple(state), cfg.n_heads)
+        if sp is None:
+            cache[i] = new
+        else:
+            for shard, t, dim in zip(cache[i], new, dims):
+                sp.keep_state(shard, t, dim)
+        x = x + y
+    return x
+
+
+def _decode_hybrid(params, cfg: ModelConfig, cache, x, cur_len, resid=None):
+    """Mamba2 layers and the shared attention block, one token.  On a mesh
+    a layer's SSM state is gathered whole over model, stepped, and this
+    rank's slice written back (as :func:`_decode_xlstm`); the shared block's
+    K/V caches are attended where they lie."""
+    sp = spmd.context(resid)
     emb = x
-    shared = params["shared"]
+    shared = tf.whole_layer(params["shared"], resid)
     d2 = 2 * cfg.d_model
     groups, per_group = cache["ssm"].shape[:2]
+    hd = cfg.d_inner // cfg.n_ssm_heads
+    layers = tf.unstack_on((params["group_norms"], params["groups"]), resid, axes=2)
     for g in range(groups):
         for i in range(per_group):
-            hn = rmsnorm_apply(tf.layer(params["group_norms"], (g, i)), x, cfg.norm_eps)
-            y, state = m2.mamba2_decode(tf.layer(params["groups"], (g, i)), hn,
-                                        cache["ssm"][g, i], cfg.d_inner, cfg.n_ssm_heads,
+            norm_p, m_p = tf.whole_layer(layers[g * per_group + i], resid)
+            hn = rmsnorm_apply(norm_p, x, cfg.norm_eps)
+            shard = cache["ssm"][g, i]
+            state, dim = shard, None
+            if sp is not None:
+                state, dim = sp.whole_state(shard, (cfg.n_ssm_heads, hd, cfg.ssm_state))
+            y, state = m2.mamba2_decode(m_p, hn, state, cfg.d_inner, cfg.n_ssm_heads,
                                         cfg.ssm_state, cfg.ssm_groups)
-            cache["ssm"][g, i] = state
+            if sp is None:
+                shard.copy_(state)
+            else:
+                sp.keep_state(shard, state, dim)
             x = x + y
         cb = torch.cat([x, emb], dim=-1)
         hn = rmsnorm_apply(shared["ln1"], cb, cfg.norm_eps)
         a, _, _ = attn_mod.gqa_decode(shared["attn"], hn, cache["shared_k"][g],
                                       cache["shared_v"][g], cur_len, cfg.n_heads,
                                       cfg.n_kv_heads, d2 // cfg.n_heads,
-                                      rope_theta=cfg.rope_theta)
+                                      rope_theta=cfg.rope_theta, resid=resid)
         x = _shared_mlp(shared, x + dense_apply(shared["down"], a), cfg)
     return x
 
 
-def _decode_encdec(params, cfg: ModelConfig, cache, x, cur_len: int):
-    b = x.shape[0]
-    rep = cfg.n_heads // cfg.n_kv_heads
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    for i in range(cfg.n_layers):
-        lp = tf.layer(params["dec_layers"], i)
-        self_k, self_v = cache["self"]["k"][i], cache["self"]["v"][i]
-        kk, vv = cache["cross"]["k"][i], cache["cross"]["v"][i]      # grouped, no repeat
+def _decode_encdec(params, cfg: ModelConfig, cache, x, cur_len, resid=None):
+    layers = tf.unstack_on(params["dec_layers"], resid)
+    for i, lp in enumerate(layers):
+        lp = tf.whole_layer(lp, resid)
         hn = rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
-        a, _, _ = attn_mod.gqa_decode(lp["self"], hn, self_k, self_v, cur_len, cfg.n_heads,
-                                      cfg.n_kv_heads, cfg.head_dim, rope_theta=cfg.rope_theta)
+        a, _, _ = attn_mod.gqa_decode(lp["self"], hn, cache["self"]["k"][i],
+                                      cache["self"]["v"][i], cur_len, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.head_dim, rope_theta=cfg.rope_theta,
+                                      resid=resid)
         x = x + a
         hn = rmsnorm_apply(lp["ln2"], x, cfg.norm_eps)
-        # cross attention against the (static) encoder K/V cache
-        q = dense_apply(lp["cross"]["wq"], hn).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-        qg = attn_mod._scaled(q, scale).reshape(b, 1, cfg.n_kv_heads, rep, cfg.head_dim)
-        scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), kk.float())
-        valid = torch.arange(kk.shape[1], device=x.device) < cache["enc_len"]
-        scores = scores.masked_fill(~valid, attn_mod.NEG_INF)
-        w = torch.softmax(scores, dim=-1).to(vv.dtype)
-        c = torch.einsum("bgrqk,bkgd->bqgrd", w.float(), vv.float()).to(vv.dtype)
-        x = x + dense_apply(lp["cross"]["wo"], c.reshape(b, 1, -1))
+        # cross attention against the (static) encoder K/V cache, grouped
+        x = x + attn_mod.cross_decode(lp["cross"], hn, cache["cross"]["k"][i],
+                                      cache["cross"]["v"][i], cache["enc_len"], cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.head_dim, resid=resid)
         hn = rmsnorm_apply(lp["ln3"], x, cfg.norm_eps)
         x = x + gelu_mlp_apply(lp["mlp"], hn)
     return x

@@ -147,9 +147,9 @@ def moe_ep_apply(
     """
     from repro_torch.parallel import spmd
 
-    if tuple(data_axes) != ("data",):
-        raise NotImplementedError(f"data axes {data_axes}: a (data, model) mesh only")
-    data = spmd.mesh_axis(mesh, "data", token=True)
+    if tuple(data_axes) not in (("data",), spmd.POD_DATA):
+        raise NotImplementedError(f"data axes {data_axes}")
+    data = spmd.data_axis(mesh, token=True)
     model = spmd.mesh_axis(mesh, model_axis, token=True)
     tp = model.size
     e_loc = n_experts // tp
@@ -171,7 +171,7 @@ def moe_ep_apply(
     flat_e = topk_i.reshape(L)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = F.one_hot(flat_e, n_experts).sum(dim=0)             # shape-static bincount
     starts = torch.cumsum(counts, dim=0) - counts
     ranks_sorted = torch.arange(L, device=x.device) - starts[sorted_e]
     pos = torch.empty_like(flat_e).scatter_(0, order, ranks_sorted)

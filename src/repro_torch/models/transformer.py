@@ -156,20 +156,25 @@ def decoder_layer_apply(p: Params, x: torch.Tensor, cfg, ep_spec=None, attn_spec
 
 
 def decoder_layer_decode(
-    p: Params, x: torch.Tensor, cache_layer, cur_len, cfg
+    p: Params, x: torch.Tensor, cache_layer, cur_len, cfg, resid=None
 ) -> tuple[torch.Tensor, Any]:
-    """One token through one layer; the layer's cache is written in place."""
+    """One token through one layer; the layer's cache is written in place.
+    On a mesh (``resid``: the sharded decode's batch sharding) the layer's
+    weights arrive as shards and are gathered whole here, and the cache is
+    this rank's shard; a MoE layer's experts are gathered whole too (the
+    dense combine, as the reference passes decode no expert hint)."""
+    p = whole_layer(p, resid)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if cfg.mla_kv_lora:
         a, c_c, c_kr = attn.mla_decode(
             p["attn"], h, cache_layer["c"], cache_layer["kr"], cur_len, cfg.n_heads,
             cfg.mla_kv_lora, cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_head,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, resid=resid)
         new_cache = {"c": c_c, "kr": c_kr}
     else:
         a, ck, cv = attn.gqa_decode(
             p["attn"], h, cache_layer["k"], cache_layer["v"], cur_len, cfg.n_heads,
-            cfg.n_kv_heads, cfg.head_dim, rope_theta=cfg.rope_theta)
+            cfg.n_kv_heads, cfg.head_dim, rope_theta=cfg.rope_theta, resid=resid)
         new_cache = {"k": ck, "v": cv}
     x = x + a
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
@@ -231,9 +236,13 @@ def scan_stack_decode(
     cache: Any,                    # tree with leading layer axis, written in place
     cur_len,
     apply_one: Callable,           # (lp, x, cache_layer, cur_len) -> (x, cache')
+    constraint=None,
 ) -> tuple[torch.Tensor, Any]:
-    for i in range(tree_leaves(layer_params)[0].shape[0]):
-        x, _ = apply_one(layer(layer_params, i), x, layer(cache, i), cur_len)
+    """``apply_one`` over the layers; on a mesh (``constraint``) the layers
+    are shards, which ``apply_one`` gathers, and the cache's layers views
+    of this rank's cache shards."""
+    for i, lp in enumerate(unstack_on(layer_params, constraint)):
+        x, _ = apply_one(lp, x, layer(cache, i), cur_len)
     return x, cache
 
 

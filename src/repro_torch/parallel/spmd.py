@@ -24,8 +24,17 @@ different parts of the loss, so a gradient is summed over it.  Along any
 other axis every rank computes the same thing: an all-gather's backward
 then takes the rank's own slice, and a slice's backward all-gathers.
 
-Only a (data, model) ``DeviceMesh`` is taken; the multi-pod mesh exists for
-the rules alone (``launch.mesh.make_production_mesh``).
+A decode step (no gradient) runs on the cache's shards as
+:func:`repro_torch.parallel.sharding.cache_specs` places them: where the
+model axis splits each head's vector (or a state's last dim), the ranks'
+partial scores are summed over model (:meth:`StepContext.sum_over_model`)
+and the outputs gathered (:meth:`StepContext.gather_model`); no step
+gathers a layer's KV cache.
+
+A (data, model) ``DeviceMesh`` is taken, and the multi-pod
+(pod, data, model) one, whose rules split a dim over ``("pod", "data")``:
+those two axes act as one data axis, flattened pod-major
+(:func:`data_axis`).
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 from repro_torch.parallel.sharding import PartitionSpec, spec_map
 
 AXES = ("data", "model")
+#: the multi-pod mesh's data axes, which its rules always name together
+POD_DATA = ("pod", "data")
 
 
 # -- autograd collectives --------------------------------------------------------
@@ -172,6 +183,16 @@ def mesh_axis(mesh, name: str, token: bool) -> _Axis:
     return _Axis(mesh.get_group(name), mesh.size(i), mesh.get_local_rank(name), token)
 
 
+def data_axis(mesh, token: bool) -> _Axis:
+    """The data axis of a (data, model) ``DeviceMesh``, or of a (pod, data,
+    model) one its pod and data axes flattened into one, pod-major, as the
+    rules split a dim over ``("pod", "data")``."""
+    if "pod" not in mesh.mesh_dim_names:
+        return mesh_axis(mesh, "data", token)
+    flat = mesh[POD_DATA]._flatten()
+    return _Axis(flat.get_group(), flat.size(), flat.get_local_rank(), token)
+
+
 # -- the step's context ----------------------------------------------------------
 
 
@@ -185,9 +206,12 @@ def context(*shardings) -> "StepContext | None":
 
 
 def _axes_of(entry) -> tuple[str, ...]:
+    """The step's axes a spec entry names: ``("pod", "data")`` is the one
+    flattened data axis."""
     if entry is None:
         return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    return ("data",) if axes == POD_DATA else axes
 
 
 class StepContext:
@@ -197,14 +221,14 @@ class StepContext:
     parameter tensor the step hands the model (:meth:`bind`)."""
 
     def __init__(self, mesh, batch_split: bool, seq_split: bool):
-        if tuple(mesh.mesh_dim_names or ()) != AXES:
+        if tuple(mesh.mesh_dim_names or ()) not in (AXES, POD_DATA + ("model",)):
             raise NotImplementedError(
-                f"the sharded step takes a ('data', 'model') DeviceMesh, got "
-                f"{mesh.mesh_dim_names}: the multi-pod mesh serves the rules only")
+                f"the sharded step takes a ('data', 'model') or ('pod', 'data', 'model') "
+                f"DeviceMesh, got {mesh.mesh_dim_names}")
         self.mesh = mesh
         self.batch_split, self.seq_split = batch_split, seq_split
-        token = {"data": batch_split, "model": seq_split}
-        self.axes = {a: mesh_axis(mesh, a, token[a]) for a in AXES}
+        self.axes = {"data": data_axis(mesh, batch_split),
+                     "model": mesh_axis(mesh, "model", seq_split)}
         # id -> (tensor, spec, whether the sums of its gradient over the token
         # axes it is replicated on are already taken, on its whole stack)
         self._specs: dict[int, tuple[torch.Tensor, PartitionSpec, bool]] = {}
@@ -362,6 +386,47 @@ class StepContext:
         the batch is not split); no gradient."""
         data = self.axes["data"]
         return _all_gather(x, 0, data) if self.batch_split and data.size > 1 else x
+
+    # decode (no gradient) ------------------------------------------------------
+
+    def sum_over_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial sums over the model ranks' slices of a split dim (a decode
+        step's scores over a head's vector), added up in place."""
+        if self.model.size > 1:
+            dist.all_reduce(x, group=self.model.group)
+        return x
+
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of ``dim`` from every model rank's slice."""
+        return x if self.model.size == 1 else _all_gather(x, dim % x.dim(), self.model)
+
+    def own_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This model rank's slice of ``dim``."""
+        return x if self.model.size == 1 else _own_slice(x, dim, self.model)
+
+    def model_dim(self, shard: torch.Tensor, whole: tuple[int, ...]) -> int | None:
+        """The trailing dim (a negative index) of a cache shard that the model
+        axis splits, from its trailing sizes ``whole`` before the split
+        (``cache_specs`` puts the model axis on one dim at most); None where
+        the shard holds them whole."""
+        for i in range(1, len(whole) + 1):
+            if shard.shape[-i] != whole[-i]:
+                if shard.shape[-i] * self.model.size != whole[-i]:
+                    raise ValueError(f"a cache shard of shape {tuple(shard.shape)} is no "
+                                     f"model-axis split of (..., {whole})")
+                return -i
+        return None
+
+    def whole_state(self, shard: torch.Tensor,
+                    whole: tuple[int, ...]) -> tuple[torch.Tensor, int | None]:
+        """A recurrent state's shard gathered whole over model, and the dim it
+        was split on (for :meth:`keep_state`)."""
+        dim = self.model_dim(shard, whole)
+        return (shard if dim is None else self.gather_model(shard, dim)), dim
+
+    def keep_state(self, shard: torch.Tensor, new: torch.Tensor, dim: int | None) -> None:
+        """Write this rank's slice of a whole new state into its shard."""
+        shard.copy_(new if dim is None else self.own_model(new, dim))
 
     def sum_over_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (no gradient) summed over every token axis."""

@@ -14,8 +14,12 @@ parallelism, zamba2, xlstm and whisper smoke configs on meshes (2, 2) and
 (4, 1), every product in fp32 and as shipped in bf16), ``prefill`` (the
 prefill step on (1, 4): a context-parallel split of the sequence),
 ``elastic`` (the reference test's tree reshard, shrink and grow),
-``pipeline`` (``DataPipeline`` with ``shardings``), and, in a world of 8,
-``moe_ep`` (``moe_ep_apply`` on a (2, 4) mesh).
+``pipeline`` (``DataPipeline`` with ``shardings``), ``decode`` (the serve
+step of every cache layout on meshes (2, 2), (4, 1) and (1, 4), every
+product in fp32, and one case as shipped for the reference), in a world of
+1 ``decode_one`` (the serve step on a (1, 1) mesh, as shipped, for a
+bitwise check), and, in a world of 8, ``moe_ep`` (``moe_ep_apply`` on a
+(2, 4) mesh).
 """
 
 import argparse
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils._python_dispatch import TorchDispatchMode
 
 #: the train-step families: (arch, batch, seq)
 FAMILIES = {"yi-9b": (4, 64), "deepseek-v2-lite-16b": (4, 64), "zamba2-2.7b": (4, 64),
@@ -250,6 +255,180 @@ def phase_pipeline(rank: int) -> dict:
             "local_rows": [batch[k].to_local().shape[0] for k in sorted(batch)]}
 
 
+#: the decode's families: GQA, MLA with MoE layers, Mamba2 with the shared
+#: attention block, xLSTM, and whisper's self and cross caches
+DECODE_FAMILIES = ("yi-9b", "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-125m",
+                   "whisper-base")
+DECODE_MESHES = {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}
+#: B, Smax: a cache dim the rules take for the batch must be the batch (zamba2's
+#: 2 groups of 2 layers), and a head dim as long as Smax is never split
+DECODE_BATCH, DECODE_MAX_LEN = 4, 12
+#: four steps after a seeded prompt, the last at cur_len = Smax (the clamped write)
+DECODE_CUR_LENS = (9, 10, 11, 12)
+#: the case whose sharded logits the test holds against the reference's decode
+DECODE_REFERENCE = ("yi-9b", "2x2")
+
+
+def seeded_cache(cfg, dtype, seed: int):
+    """A cache of (DECODE_BATCH, DECODE_MAX_LEN) rows that the one-device
+    decode filled from seeded tokens up to the first of DECODE_CUR_LENS
+    (whisper's cross K/V, which a prefill fills, drawn from a seeded normal,
+    its encoder length Smax - 2)."""
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    rng = np.random.default_rng(seed)
+    cache = init_cache(cfg, DECODE_BATCH, DECODE_MAX_LEN, dtype=dtype, device="cpu")
+    if cfg.family == "encdec":
+        for key in ("k", "v"):
+            cache["cross"][key] = torch.from_numpy(rng.standard_normal(
+                tuple(cache["cross"][key].shape)).astype(np.float32)).to(dtype)
+        cache["enc_len"] = torch.tensor(DECODE_MAX_LEN - 2, dtype=torch.int32)
+    params = init_params(cfg, 3, device="cpu")
+    tokens = rng.integers(0, cfg.vocab, (DECODE_BATCH, DECODE_CUR_LENS[0])).astype(np.int32)
+    for t in range(DECODE_CUR_LENS[0]):
+        _, cache = decode_step(params, cfg, cache, {"tokens": torch.from_numpy(tokens[:, t:t + 1]),
+                                                    "cur_len": t})
+    return cache
+
+
+def decode_tokens(cfg, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (DECODE_BATCH, len(DECODE_CUR_LENS)))
+                            .astype(np.int32))
+
+
+def decode_steps(step, params, cache, tokens) -> list[torch.Tensor]:
+    """``step`` at each of DECODE_CUR_LENS; the cache is written in place."""
+    out = []
+    for i, cur_len in enumerate(DECODE_CUR_LENS):
+        logits, cache = step(params, cache, {"tokens": tokens[:, i:i + 1], "cur_len": cur_len})
+        out.append(logits)
+    return out
+
+
+def _decode_case(name: str):
+    """(cfg, arch, shape, params) of a family's decode at the smoke widths."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+
+    cfg = ARCHS[name].smoke
+    return cfg, _arch(cfg), _shape("decode", DECODE_BATCH, DECODE_MAX_LEN), \
+        init_params(cfg, 3, device="cpu")
+
+
+def _placed_cache(cache, mesh):
+    """A copy of ``cache`` placed on ``mesh`` by ``cache_specs``, and the specs."""
+    from repro_torch.parallel import sharding as sh
+
+    specs = sh.cache_specs(cache, mesh, DECODE_MAX_LEN, DECODE_BATCH)
+    return sh.distribute_tree(_clone(cache), mesh, specs), specs
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.double(), want.double()
+    norm = float(w.norm())
+    return float((g - w).norm()) / norm if norm else float((g - w).norm())
+
+
+class GatheredShapes(TorchDispatchMode):
+    """The shapes of every all-gather's output while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "c10d" and "allgather" in func._schema.name:
+            self.shapes.append(list(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+def phase_decode(rank: int, out_dir: str) -> dict:
+    """Each family's serve step on each mesh against the one-device step,
+    every product in fp32 (fp32 caches): the logits of every step and every
+    cache leaf after the last, gathered whole, and the shapes of everything
+    the sharded steps all-gathered.  Then the reference case as shipped: its
+    params, first cache, tokens and sharded logits written for the test."""
+    import pickle
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.parallel import sharding as sh
+
+    meshes = {key: mesh_mod.make_debug_mesh(*shape, device_type="cpu")
+              for key, shape in DECODE_MESHES.items()}
+    out = {}
+    gathered = GatheredShapes()
+    for name in DECODE_FAMILIES:
+        cfg, arch, shape, params = _decode_case(name)
+        tokens = decode_tokens(cfg, 4)
+        with products_in(torch.float32):
+            cache0 = seeded_cache(cfg, torch.float32, 5)
+            want_cache = _clone(cache0)
+            wants = decode_steps(steps.make_serve_step(arch, shape), params, want_cache, tokens)
+            want_leaves = dict(sh.leaves_with_path(want_cache))
+            for key, mesh in meshes.items():
+                cache, specs = _placed_cache(cache0, mesh)
+                step = steps.make_serve_step(arch, shape, mesh)
+                with gathered:
+                    gots = decode_steps(step, sh.distribute_tree(params, mesh), cache, tokens)
+                out[f"{name}/{key}"] = {
+                    "logits": [_rel(g, w) for g, w in zip(gots, wants)],
+                    "shape": list(gots[0].shape),
+                    "cache": {path: _rel(t.full_tensor() if t.dim() else t, want_leaves[path])
+                              for path, t in sh.leaves_with_path(cache)},
+                    "specs": {path: repr(spec) for path, spec in sh.leaves_with_path(specs)},
+                    "placed": all(t.placements == sh.placements(spec, mesh)
+                                  for (_, t), (_, spec) in zip(sh.leaves_with_path(cache),
+                                                               sh.leaves_with_path(specs))
+                                  if t.dim()),
+                }
+    out["gathered_shapes"] = gathered.shapes
+    # the reference case, as shipped (bf16 products and caches)
+    name, key = DECODE_REFERENCE
+    cfg, arch, shape, params = _decode_case(name)
+    tokens = decode_tokens(cfg, 6)
+    cache0 = seeded_cache(cfg, torch.bfloat16, 7)
+    cache, _ = _placed_cache(cache0, meshes[key])
+    step = steps.make_serve_step(arch, shape, meshes[key])
+    gots = decode_steps(step, sh.distribute_tree(params, meshes[key]), cache, tokens)
+    if rank == 0:
+        with open(Path(out_dir) / "decode_reference_case.pkl", "wb") as f:
+            pickle.dump({"name": name, "params": params_to_numpy(params),
+                         "cache": params_to_numpy(cache0), "tokens": tokens.numpy(),
+                         "cur_lens": DECODE_CUR_LENS,
+                         "logits": [g.float().numpy() for g in gots]}, f)
+    return out
+
+
+def phase_decode_one(rank: int) -> dict:
+    """Each family's serve step on a (1, 1) mesh against the one-device
+    step, as shipped: logits and caches bit for bit."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.parallel import sharding as sh
+
+    mesh = mesh_mod.make_debug_mesh(1, 1, device_type="cpu")
+    out = {}
+    for name in DECODE_FAMILIES:
+        cfg, arch, shape, params = _decode_case(name)
+        tokens = decode_tokens(cfg, 4)
+        cache0 = seeded_cache(cfg, torch.bfloat16, 5)
+        want_cache = _clone(cache0)
+        wants = decode_steps(steps.make_serve_step(arch, shape), params, want_cache, tokens)
+        cache, _ = _placed_cache(cache0, mesh)
+        gots = decode_steps(steps.make_serve_step(arch, shape, mesh),
+                            sh.distribute_tree(params, mesh), cache, tokens)
+        out[name] = {
+            "logits": all(torch.equal(g, w) for g, w in zip(gots, wants)),
+            "cache": all(torch.equal(g.full_tensor() if hasattr(g, "full_tensor") else g, w)
+                         for g, w in zip(tree_leaves(cache), tree_leaves(want_cache))),
+        }
+    return out
+
+
 #: the reference test's MoE sizes (tests/test_multidevice.py): E, K, d, ff, B, S
 MOE = (8, 2, 32, 64, 4, 16)
 
@@ -314,6 +493,10 @@ def run(rank: int, world: int, port: int, out_dir: str, phases: list[str]) -> No
             out["elastic"] = phase_elastic(rank, world)
         elif phase == "pipeline":
             out["pipeline"] = phase_pipeline(rank)
+        elif phase == "decode":
+            out["decode"] = phase_decode(rank, out_dir)
+        elif phase == "decode_one":
+            out["decode_one"] = phase_decode_one(rank)
         elif phase == "moe_ep":
             out["moe_ep"] = phase_moe_ep(rank, out_dir)
         else:

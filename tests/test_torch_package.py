@@ -113,6 +113,8 @@ SHARDING = [
     "parallel/spmd.py",
     "launch/mesh.py",
     "runtime/elastic.py",
+    "launch/dryrun.py",
+    "launch/roofline.py",
 ]
 
 #: what each package's ``__init__`` exports of the sharding plane
@@ -124,7 +126,8 @@ SHARDING_EXPORTS = {
     "repro_torch.launch": ["batch_shardings", "cache_struct", "input_specs",
                            "make_debug_mesh", "make_production_mesh", "model_constraints",
                            "opt_state_struct", "params_struct", "sharded_loss_and_grads",
-                           "step_shardings"],
+                           "step_shardings", "Roofline", "analyze_step",
+                           "model_flops_for_cell", "run_cell"],
     "repro_torch.runtime": ["build_mesh", "grow", "reshard_state", "shrink"],
 }
 
@@ -195,6 +198,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "import repro_torch.parallel.sharding, repro_torch.parallel.spmd\n"
         "import repro_torch.launch.mesh, repro_torch.runtime.elastic\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

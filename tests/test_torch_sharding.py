@@ -13,6 +13,7 @@ and ``step_shardings`` equal the reference's.  A spec is compared in the
 canonical form (a one-name tuple as the bare name).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -26,7 +27,7 @@ from repro.launch import steps as jx_steps
 from repro.parallel import sharding as jx_sh
 from repro.parallel.compat import abstract_mesh
 from repro_torch.configs import ARCHS
-from repro_torch.configs.base import SHAPES
+from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.launch import mesh as pt_mesh
 from repro_torch.launch import steps
 from repro_torch.parallel import sharding as sh
@@ -127,17 +128,41 @@ def test_production_mesh_shapes_and_placements():
 
 
 def test_sharded_serve_step_names_the_next_slice():
+    """The sharded serve step was the next slice of the port; it now runs on
+    a (data, model) or (pod, data, model) mesh
+    (``tests/test_torch_sharded_decode.py``), and a mesh of other axes is
+    refused with the axes the steps take."""
     class _Mesh:
+        mesh_dim_names = ("r",)
+
         def get_group(self, name):
             raise AssertionError("not reached")
 
         def size(self):
             return 4
 
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="'data', 'model'"):
         steps.make_serve_step(ARCHS["yi-9b"], SHAPES["decode_32k"], _Mesh())
     with pytest.raises(TypeError):
         steps.make_train_step(ARCHS["yi-9b"], SHAPES["train_4k"], MESH)
+
+
+def test_sharded_serve_step_refuses_a_cache_split_off_its_batch():
+    """The rules find a cache's batch dim by its size: where a stacked axis
+    is as long as the batch (zamba2's smoke cache has 2 groups of 2 layers)
+    they split it over data, and the decode, which reads each shard's rows as
+    the tokens' rows, refuses the cell; at another batch it takes it."""
+    arch = ARCHS["zamba2-2.7b"]
+    smoke = dataclasses.replace(arch, model=arch.smoke)
+    for batch, refused in ((2, True), (4, False)):
+        shape = ShapeConfig("decode_test", "decode", 16, batch)
+        specs = sh.cache_specs(steps.cache_struct(smoke, shape),
+                               sh.AbstractMesh((2, 2), ("data", "model")), 16, batch)
+        if refused:
+            with pytest.raises(NotImplementedError, match="batch dim"):
+                steps._check_cache_specs(smoke.model, shape, specs, batch_split=True)
+        else:
+            steps._check_cache_specs(smoke.model, shape, specs, batch_split=True)
 
 
 # -- against the reference --------------------------------------------------------------

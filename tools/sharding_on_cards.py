@@ -33,6 +33,20 @@ and batches (``chip_smoke``'s seeds and makers), places them on a
     (2, 2), then one step on the survivors, against a 2-rank step from the
     same state distributed afresh: bit for bit, under deterministic
     algorithms.
+(f) the sharded decode of yi-9b whole on (4, 1) and (2, 2): timed at
+    decode_32k's cache length (S=32768) and half its batch (B=64: 206 GB
+    of bf16 KV cache, 51.5 GB a card), each card's cache shard drawn from
+    a seeded normal, ``cur_len`` from ``DECODE_FROM`` near the end: the
+    median ms a step over ``DECODE_TIMED`` steps after a warm one,
+    tokens/s and each card's peak memory; then a witness at B=8, S=4096
+    against the one-card decode on rank 0's card from the same params and
+    cache (the last step at ``cur_len = Smax``): every step's logits within
+    ``chip_smoke.WHOLE_MODEL`` as shipped (bf16), and within
+    ``chip_smoke.FP32_MODEL`` with every product and the cache in fp32
+    (``chip_smoke.fp32_compute``), where only fp32 rounding parts the two.
+    Beside them, the dry-run of the same two
+    4-card cells (``launch.dryrun.run_cell`` in a process of its own): its
+    roofline terms and peak bytes a card.
 
 Prints the card's name and power limit and, last, one JSON object (also
 written to ``OUT_DIR/sharding.json``).  ``--cpu-rehearsal`` runs the same
@@ -69,6 +83,10 @@ CUT = 8                       # (b) and (e): yi-9b's layers
 DSV2_CUT = 4                  # (c): 1 dense + 3 MoE layers
 MOE_CAPACITY = 8.0            # (c): drops nothing on either path
 PREFILL_SEQ = 32768           # (d)
+DECODE_BATCH, DECODE_SEQ = 64, 32768        # (f), timed
+DECODE_FROM, DECODE_TIMED = 32758, 8        # (f): the first cur_len, steps after a warm one
+WITNESS_BATCH, WITNESS_SEQ = 8, 4096        # (f), against one card
+WITNESS_LENS = (4093, 4094, 4095, 4096)     # the last at Smax: the clamped write
 START_STEP = 20               # the optimizer's step before a compared step (lr > 0)
 #: (b), (c): the sharded step against one card's, both in bf16 (the CPU
 #: tests' bf16 limits, tests/test_torch_sharded_step.py): the loss relative
@@ -502,11 +520,183 @@ def part_e(rank: int, dev) -> dict:
     return res
 
 
+def seeded_local_cache(cfg, b: int, s: int, mesh, dev, seed: int):
+    """The decode cache of (b, s) rows placed by ``cache_specs``: each rank
+    draws only its own shards, from a normal seeded by ``seed`` and its rank
+    (no whole cache is made; 51.5 GB a card at B=64, S=32768)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import init_cache
+    from repro_torch.parallel import sharding as sh
+
+    struct = init_cache(cfg, b, s, device="meta")
+    specs = sh.cache_specs(struct, mesh, s, b)
+    sizes = sh.mesh_shape(mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed * 1000 + dist.get_rank())
+
+    def one(leaf, spec):
+        local = list(leaf.shape)
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                local[d] //= sizes[entry]
+        shard = torch.empty(local, dtype=leaf.dtype, device=dev)
+        for i in range(shard.shape[0]):        # a layer at a time: no fp32 copy of it all
+            shard[i].copy_(torch.randn(shard[i].shape, generator=gen, device=dev))
+        return DTensor.from_local(shard, mesh, sh.placements(spec, mesh), run_check=False,
+                                  shape=leaf.shape, stride=leaf.stride())
+
+    return sh.spec_map(one, struct, specs)
+
+
+def decode_roofline(cells: list) -> dict:
+    """The dry-run of each (mesh shape, B, S) decode cell of yi-9b, in a
+    process of its own (a fake world is process-global)."""
+    import subprocess
+
+    script = (
+        "import json, sys\n"
+        "from repro_torch.configs.base import ShapeConfig\n"
+        "from repro_torch.launch.dryrun import run_cell\n"
+        "out = {}\n"
+        "for mesh, b, s in json.loads(sys.argv[1]):\n"
+        "    shape = ShapeConfig(f'decode_b{b}_s{s}', 'decode', s, b)\n"
+        "    row = run_cell('yi-9b', shape, mesh_shape=tuple(mesh), save=False, verbose=False)\n"
+        "    out['x'.join(map(str, mesh))] = {'roofline': row['roofline'],\n"
+        "        'memory_analysis': row['memory_analysis'], 'trace_s': row['trace_s']}\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-W", "ignore", "-c", script, json.dumps(cells)],
+                          env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        return {"error": proc.stderr[-2000:]}
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def gathered_whole(rank: int, params):
+    """Rank 0's whole params from the mesh (every rank takes part)."""
+    whole = tree_map(lambda t: t.full_tensor(), params)
+    return whole if rank == 0 else None
+
+
+def decode_witness(rank: int, cfg, mesh, params, one_params, dev, rng, tol: dict) -> dict:
+    """(f)'s witness: WITNESS_LENS steps of the sharded decode from one
+    seeded cache of (WITNESS_BATCH, WITNESS_SEQ) rows against the one-card
+    decode on rank 0's card from the same params and cache: every step's
+    logits within ``tol`` (rank 0's row; the cache's dtype and the products'
+    are ``init_cache``'s and ``dense_apply``'s defaults)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import init_cache
+    from repro_torch.parallel import sharding as sh
+
+    arch, cell = cs.arch_shape(cfg, "decode", WITNESS_BATCH, WITNESS_SEQ)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.MODEL_SEED + 6)
+    whole = init_cache(cfg, WITNESS_BATCH, WITNESS_SEQ, device=dev)
+    for leaf in (whole["scan"]["k"], whole["scan"]["v"]):
+        for i in range(leaf.shape[0]):
+            leaf[i].copy_(torch.randn(leaf[i].shape, generator=gen, device=dev))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (WITNESS_BATCH, len(WITNESS_LENS)))
+                              ).to(dev)
+    cache = own_shards(sh.distribute_tree(
+        whole, mesh, sh.cache_specs(whole, mesh, WITNESS_SEQ, WITNESS_BATCH)))
+    step = steps.make_serve_step(arch, cell, mesh)
+    gots = [step(params, cache, {"tokens": tokens[:, i:i + 1], "cur_len": t})[0]
+            for i, t in enumerate(WITNESS_LENS)]
+    res = None
+    if rank == 0:
+        one = steps.make_serve_step(arch, cell)
+        wants = [one(one_params, whole, {"tokens": tokens[:, i:i + 1], "cur_len": t})[0]
+                 for i, t in enumerate(WITNESS_LENS)]
+        closes = [cs.closeness(g, w, tol) for g, w in zip(gots, wants)]
+        res = {"batch": [WITNESS_BATCH, WITNESS_SEQ], "lens": list(WITNESS_LENS),
+               "dtype": str(whole["scan"]["k"].dtype),
+               "max_abs_err": max(c[0] for c in closes),
+               "tolerance_share": max(c[1] for c in closes),
+               "rel_rms_err": [c[2] for c in closes], "tolerance": tol}
+        res["ok"] = res["tolerance_share"] <= 1.0 and max(res["rel_rms_err"]) <= tol["rel_rms"]
+        del wants
+    del whole, cache, gots
+    empty_cache()
+    return res
+
+
+def part_f(rank: int, dev) -> dict:
+    """yi-9b whole, the sharded decode on (4, 1) and (2, 2): timed at B=64,
+    S=32768; the witness at B=8, S=4096 against one card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+
+    cfg = yi(48)
+    rng = np.random.default_rng(cs.MODEL_SEED + 5)
+    out = {}
+    for key, shape in (("4x1", (4, 1)), ("2x2", (2, 2))):
+        mesh = mesh_mod.make_debug_mesh(*shape, device_type=DEVICE_TYPE)
+        params = sharded_params(cfg, mesh, dev)[0]
+        # timed, at decode_32k's cache length
+        arch, cell = cs.arch_shape(cfg, "decode", DECODE_BATCH, DECODE_SEQ)
+        cache = seeded_local_cache(cfg, DECODE_BATCH, DECODE_SEQ, mesh, dev, 1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (DECODE_BATCH, 1 + DECODE_TIMED))
+                                  ).to(dev)
+        step = steps.make_serve_step(arch, cell, mesh)
+        if DEVICE_TYPE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(1 + DECODE_TIMED):
+            dist.barrier()
+            sync()
+            start = time.perf_counter()
+            logits, cache = step(params, cache, {"tokens": tokens[:, i:i + 1],
+                                                 "cur_len": DECODE_FROM + i})
+            sync()
+            times.append((time.perf_counter() - start) * 1e3)
+        ms = statistics.median(times[1:])
+        peak = torch.tensor([torch.cuda.max_memory_allocated() if DEVICE_TYPE == "cuda" else 0],
+                            device=dev)
+        gathered = [torch.zeros_like(peak) for _ in range(WORLD)]
+        dist.all_gather(gathered, peak)
+        row = {"batch": [DECODE_BATCH, DECODE_SEQ], "step_ms": times, "median_step_ms": ms,
+               "tokens_per_s": DECODE_BATCH / ms * 1e3,
+               "peak_memory_per_card": [int(x) for x in gathered],
+               "logits_shape": list(logits.shape),
+               "finite": bool(torch.isfinite(logits).all())}
+        del cache, logits
+        empty_cache()
+        # the witnesses: the same params and one seeded cache, against one card,
+        # as shipped (bf16) and with every product and the cache in fp32
+        one_params = gathered_whole(rank, params)
+        row["witness"] = decode_witness(rank, cfg, mesh, params, one_params, dev, rng,
+                                        cs.WHOLE_MODEL)
+        with cs.fp32_compute():
+            row["witness_fp32"] = decode_witness(rank, cfg, mesh, params, one_params, dev, rng,
+                                                 cs.FP32_MODEL)
+        if rank == 0:
+            row["ok"] = row["finite"] and all(row[k]["ok"] for k in ("witness", "witness_fp32"))
+        del one_params, params
+        empty_cache()
+        dist.barrier()
+        out[key] = row
+        log(rank, f"  (f) yi-9b 48 layers decode on {key}, B={DECODE_BATCH} S={DECODE_SEQ}: "
+                  f"step {ms:.1f} ms {[round(t, 1) for t in times]}, "
+                  f"{row['tokens_per_s']:.1f} tokens/s, peak memory a card "
+                  f"{row['peak_memory_per_card']}; witness {row['witness']}, in fp32 "
+                  f"{row['witness_fp32']}")
+    return out
+
+
 def run(rank: int, port: int, parts: str, out_dir: str, device_type: str) -> None:
     import torch
     import torch.distributed as dist
 
-    global DEVICE_TYPE, SEQ, PREFILL_SEQ
+    global DEVICE_TYPE, SEQ, PREFILL_SEQ, DECODE_BATCH, DECODE_SEQ, DECODE_FROM
+    global WITNESS_SEQ, WITNESS_LENS
     DEVICE_TYPE = device_type
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -526,11 +716,13 @@ def run(rank: int, port: int, parts: str, out_dir: str, device_type: str) -> Non
         dev = torch.device("cpu")
         torch.set_num_threads(1)
         SEQ, PREFILL_SEQ = 64, 128
+        DECODE_BATCH, DECODE_SEQ, DECODE_FROM = 8, 64, 60
+        WITNESS_SEQ, WITNESS_LENS = 32, (29, 30, 31, 32)
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                 world_size=WORLD, rank=rank)
     out = {"world": WORLD, "card": cs.card_line() if rank == 0 and device_type == "cuda"
            else None}
-    fns = {"a": part_a, "b": part_b, "c": part_c, "d": part_d, "e": part_e}
+    fns = {"a": part_a, "b": part_b, "c": part_c, "d": part_d, "e": part_e, "f": part_f}
     try:
         for part in parts:
             t0 = time.perf_counter()
@@ -550,7 +742,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default="chiprun_out/sharding")
-    parser.add_argument("--parts", default="abcde")
+    parser.add_argument("--parts", default="abcdef")
     parser.add_argument("--cpu-rehearsal", action="store_true")
     args = parser.parse_args()
     device_type = "cpu" if args.cpu_rehearsal else "cuda"
@@ -561,13 +753,20 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     mp.spawn(run, args=(cs.free_port(), args.parts, args.out_dir, device_type), nprocs=WORLD)
     out = json.loads(Path(args.out_dir, "sharding.json").read_text())
-    failed = [part for part in args.parts if part in "bc"
+    failed = [part for part in args.parts if part in "bcf"
               and not all(row.get("ok", True) for row in out[part].values()
                           if isinstance(row, dict))]
     if "d" in args.parts and not out["d"].get("ok"):
         failed.append("d")
     if "e" in args.parts and not out["e"].get("next_step_equal"):
         failed.append("e")
+    if "f" in args.parts:
+        b, s = (DECODE_BATCH, DECODE_SEQ) if device_type == "cuda" else (8, 64)
+        out["f"]["dryrun"] = decode_roofline([[[4, 1], b, s], [[2, 2], b, s]])
+        print(f"  (f) dry-run of the same cells: {out['f']['dryrun']}", flush=True)
+        if "error" in out["f"]["dryrun"]:
+            failed.append("f dry-run")
+        Path(args.out_dir, "sharding.json").write_text(json.dumps(out, default=str))
     print(card)
     print(json.dumps({**out, "failed": failed}))
     return 1 if failed else 0
