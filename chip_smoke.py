@@ -156,7 +156,12 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    world on the card and a (1, 1) mesh: yi-9b whole at phase 6's decode
    (B=4 over 128 rows), ``SHARDED_DECODE_STEPS`` steps of the sharded serve
    step against the one-device step from the same params and cache, bit
-   for bit (every step's logits, every cache leaf), and both ms a step.
+   for bit (every step's logits, every cache leaf), and both ms a step;
+   then, numbers only, the bf16 floor of ``tools/sharding_on_cards.py``
+   part (f)'s witness (``WITNESS_*``) on one device: how far its logits
+   move from the whole-batch decode when the batch is split as each of
+   part (f)'s meshes splits it, and on (2, 2) also each head's scores as
+   two halves of the head vector (``witness_floor``).
 10. Prints each phase's seconds, ``{"kernels": [...]}`` (launches on each
    main path, error, times, bound) and, last, ``{"ok": true, "device":
    {...}}``.
@@ -2700,6 +2705,17 @@ SHARDED_DECODE_STEPS = 8
 #: process of its own (a fake world is process-global)
 DRYRUN_CELLS = ("decode_32k", "train_4k")
 DRYRUN_TIMEOUT = 300
+#: the witness of the sharded decode (``tools/sharding_on_cards.py`` part
+#: (f); 9b reads its one-card controls): yi-9b whole at B=8 over 4096 rows,
+#: four steps, the last at cur_len = Smax (the clamped write), from a cache
+#: drawn from a normal seeded by MODEL_SEED + 6, on part (f)'s meshes
+WITNESS_BATCH, WITNESS_SEQ = 8, 4096
+WITNESS_LENS = (4093, 4094, 4095, 4096)
+WITNESS_MESHES = {"4x1": (4, 1), "2x2": (2, 2)}
+#: part (f)'s tokens: one generator a purpose and a mesh, seeded from
+#: MODEL_SEED, the purpose's offset and the mesh's shape, so what one mesh
+#: decodes depends on no other draw
+TOKEN_PURPOSES = {"timed": 1, "witness": 2}
 
 
 def seeded_decode_cache(cfg, dev, b: int, smax: int, prompt: int, seed: int):
@@ -2735,6 +2751,130 @@ def rel_rms(got, want) -> float:
     g, w = got.double(), want.double()
     norm = float(w.norm())
     return float((g - w).norm()) / norm if norm else float((g - w).norm())
+
+
+def token_rng(purpose: str, shape: tuple[int, int]) -> np.random.Generator:
+    """The generator of one purpose's tokens (``TOKEN_PURPOSES``) on the mesh
+    of ``shape``."""
+    return np.random.default_rng([MODEL_SEED, TOKEN_PURPOSES[purpose], *shape])
+
+
+def witness_tokens(cfg, shape: tuple[int, int]) -> np.ndarray:
+    """The witness's tokens on the mesh of ``shape``, (WITNESS_BATCH, steps):
+    drawn once, for every decode that witnesses that mesh."""
+    return token_rng("witness", shape).integers(0, cfg.vocab,
+                                                (WITNESS_BATCH, len(WITNESS_LENS)))
+
+
+def witness_cache(cfg, dev):
+    """The witness's whole cache in ``init_cache``'s dtype, k and v drawn
+    from a normal seeded by MODEL_SEED + 6, a layer at a time."""
+    import torch
+
+    from repro_torch.models import init_cache
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MODEL_SEED + 6)
+    whole = init_cache(cfg, WITNESS_BATCH, WITNESS_SEQ, device=dev)
+    for leaf in (whole["scan"]["k"], whole["scan"]["v"]):
+        for i in range(leaf.shape[0]):
+            leaf[i].copy_(torch.randn(leaf[i].shape, generator=gen, device=dev))
+    return whole
+
+
+@contextlib.contextmanager
+def split_head_vector(parts: int):
+    """Every decode attention on one device computed as a mesh whose model
+    axis has ``parts`` ranks computes it: the scores as ``parts`` slices of
+    the head vector, each its own product in fp32, added in rank order (a
+    2-rank all-reduce adds the same two terms), the output a slice of the
+    value vector at a time, joined."""
+    import torch
+
+    from repro_torch.models import attention
+
+    saved = attention._grouped_attend
+
+    def split(qg, cache_k, cache_v, valid, sp=None, split=None):
+        ks = [k.contiguous() for k in cache_k.chunk(parts, -1)]      # as a rank's shard
+        vs = [v.contiguous() for v in cache_v.chunk(parts, -1)]
+        partial = [torch.einsum("bqgrd,bkgd->bgrqk", q.float(), k.float())
+                   for q, k in zip(qg.chunk(parts, -1), ks)]
+        scores = partial[0]
+        for more in partial[1:]:
+            scores = scores + more
+        scores = scores.masked_fill(~valid, attention.NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(cache_v.dtype)
+        return torch.cat([torch.einsum("bgrqk,bkgd->bqgrd", w.float(), v.float()).to(v.dtype)
+                          for v in vs], dim=-1)
+
+    attention._grouped_attend = split
+    try:
+        yield
+    finally:
+        attention._grouped_attend = saved
+
+
+def witness_decode(params, cfg, dev, tokens: np.ndarray, parts: int = 1,
+                   head_parts: int = 1) -> list:
+    """The witness's decode on one device, its cache drawn anew: each step's
+    logits on ``tokens``, the batch decoded as ``parts`` blocks of rows,
+    each alone, joined (as ``parts`` data ranks split it; a dense model's
+    cache holds the batch on dim 1), each attention's head vector in
+    ``head_parts`` slices (``split_head_vector``)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_map
+
+    whole = witness_cache(cfg, dev)
+    rows = WITNESS_BATCH // parts
+    arch, cell = arch_shape(cfg, "decode", rows, WITNESS_SEQ)
+    step = steps.make_serve_step(arch, cell)
+    toks = torch.from_numpy(tokens).to(dev)
+    blocks = []
+    with split_head_vector(head_parts) if head_parts > 1 else contextlib.nullcontext():
+        for j in range(parts):
+            block = slice(j * rows, (j + 1) * rows)
+            cache = whole if parts == 1 else tree_map(lambda t: t[:, block].clone(), whole)
+            blocks.append(decode_steps(step, params, cache, toks[block], WITNESS_LENS))
+            del cache
+    del whole
+    return [torch.cat(logits, 0) for logits in zip(*blocks)]
+
+
+def witness_controls(params, cfg, dev, tokens: np.ndarray, shape: tuple[int, int]) -> dict:
+    """The one-device controls of the witness on the mesh of ``shape``
+    (data, model), each step's logits: the batch split as its data ranks
+    split it (``batch_split``) and, where its model axis splits the head
+    vector, the scores split as well (``score_split``)."""
+    data, model = shape
+    out = {"batch_split": witness_decode(params, cfg, dev, tokens, data)}
+    if model > 1:
+        out["score_split"] = witness_decode(params, cfg, dev, tokens, data, model)
+    return out
+
+
+def distances(gots: list, wants: list, tol: dict) -> dict:
+    """Step by step closeness of ``gots`` to ``wants`` under ``tol``: the
+    largest |error| and share of the allowance, each step's relative RMS."""
+    closes = [closeness(g, w, tol) for g, w in zip(gots, wants)]
+    return {"max_abs_err": max(c[0] for c in closes),
+            "tolerance_share": max(c[1] for c in closes),
+            "rel_rms_err": [c[2] for c in closes]}
+
+
+def witness_floor(params, cfg, dev) -> dict:
+    """9b: how far the one-device controls of each of part (f)'s meshes move
+    the witness's logits from its whole-batch decode, on that mesh's
+    tokens (``WHOLE_MODEL``'s shares)."""
+    out = {}
+    for key, shape in WITNESS_MESHES.items():
+        tokens = witness_tokens(cfg, shape)
+        want = witness_decode(params, cfg, dev, tokens)
+        out[key] = {name: distances(got, want, WHOLE_MODEL) for name, got in
+                    witness_controls(params, cfg, dev, tokens, shape).items()}
+    return out
 
 
 def mesh_decode_cases() -> dict:
@@ -2879,7 +3019,12 @@ def sharded_decode_main(dev, failures: list) -> dict:
                "finite": all(bool(torch.isfinite(g).all()) for g in got)}
         for key in runs:
             res[f"{key}_step_ms"] = statistics.median(times[key][1:])
-        del runs, out, params, placed, cache0
+        del runs, out, placed, cache0
+        # numbers only, on a decode whose checks held: the bf16 floor of
+        # part (f)'s witness on one device
+        if not failures and res["logits_bitwise"] and res["cache_bitwise"]:
+            res["witness_floor"] = witness_floor(params, cfg, dev)
+        del params
     finally:
         dist.destroy_process_group()
     if not (res["logits_bitwise"] and res["cache_bitwise"] and res["finite"]):
@@ -2944,6 +3089,12 @@ def drive_decode_mesh(dev) -> dict:
               f"bit logits {main['logits_bitwise']}, cache {main['cache_bitwise']}; step "
               f"{main['mesh_step_ms']:.3f} ms sharded, {main['one_device_step_ms']:.3f} ms "
               f"one-device; nondeterministic ops {main['nondeterministic_ops']}", flush=True)
+        for key, controls in main.get("witness_floor", {}).items():
+            print(f"  9b bf16 floor of tools/sharding_on_cards.py part (f)'s witness on {key} "
+                  f"(one device, B={WITNESS_BATCH} over {WITNESS_SEQ} rows, "
+                  f"{len(WITNESS_LENS)} steps), each step's relative RMS against the whole "
+                  f"batch: " + "; ".join(f"{name} {row['rel_rms_err']}"
+                                         for name, row in controls.items()), flush=True)
         res["dryrun"] = finish_dryrun(procs, out_dir, failures)
     finally:
         for proc in procs:

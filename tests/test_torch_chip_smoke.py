@@ -23,6 +23,7 @@ vector is cut, and the cache written unclamped at ``cur_len = Smax``.
 """
 
 import importlib.util
+import math
 import types
 from pathlib import Path
 
@@ -462,8 +463,10 @@ def test_mesh_phase_fails_on_a_planted_fault(smoke, mesh_on_cpu, monkeypatch, pl
 @pytest.fixture
 def decode_mesh_on_cpu(smoke, models_on_cpu, monkeypatch):
     """Phase 9 on the CPU: 9a's host world as on the card, 9b's one-rank
-    world on gloo with phase 6's smoke models, 9c's dry-run of the
-    production cells as on the card."""
+    world on gloo with phase 6's smoke models and the witness over 32
+    rows, 9c's dry-run of the production cells as on the card."""
+    monkeypatch.setattr(smoke, "WITNESS_SEQ", 32)
+    monkeypatch.setattr(smoke, "WITNESS_LENS", (29, 30, 31, 32))
     return smoke
 
 
@@ -476,6 +479,11 @@ def test_decode_mesh_phase_passes_on_the_cpu(smoke, decode_mesh_on_cpu):
                for case, row in cases.items())
     main = res["main"]
     assert main["logits_bitwise"] and main["cache_bitwise"] and main["steps"] == 8
+    floor = main["witness_floor"]
+    assert sorted(floor) == sorted(smoke.WITNESS_MESHES)
+    assert sorted(floor["2x2"]) == ["batch_split", "score_split"]
+    assert all(len(row["rel_rms_err"]) == 4 and all(map(math.isfinite, row["rel_rms_err"]))
+               for controls in floor.values() for row in controls.values())
     assert [row["shape"] for row in res["dryrun"]] == list(smoke.DRYRUN_CELLS)
     assert all(row["chips"] == 256 for row in res["dryrun"])
 

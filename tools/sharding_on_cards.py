@@ -38,20 +38,30 @@ and batches (``chip_smoke``'s seeds and makers), places them on a
     of bf16 KV cache, 51.5 GB a card), each card's cache shard drawn from
     a seeded normal, ``cur_len`` from ``DECODE_FROM`` near the end: the
     median ms a step over ``DECODE_TIMED`` steps after a warm one,
-    tokens/s and each card's peak memory; then a witness at B=8, S=4096
-    against the one-card decode on rank 0's card from the same params and
-    cache (the last step at ``cur_len = Smax``): every step's logits within
-    ``chip_smoke.WHOLE_MODEL`` as shipped (bf16), and within
-    ``chip_smoke.FP32_MODEL`` with every product and the cache in fp32
-    (``chip_smoke.fp32_compute``), where only fp32 rounding parts the two.
-    Beside them, the dry-run of the same two
-    4-card cells (``launch.dryrun.run_cell`` in a process of its own): its
-    roofline terms and peak bytes a card.
+    tokens/s and each card's peak memory; then the witness
+    (``chip_smoke.WITNESS_*``: B=8, S=4096, the last step at ``cur_len =
+    Smax``) against the one-card decode on rank 0's card from the same
+    params, cache and tokens, as shipped (bf16) and with every product and
+    the cache in fp32 (``chip_smoke.fp32_compute``).  Each mesh's tokens
+    come from generators of its own (``chip_smoke.token_rng``: one for the
+    timed steps, one for the witness), drawn once for both witnesses.  Each
+    witness decodes twice on the mesh from the same inputs (bit for bit?),
+    and rank 0 runs the one-card controls (``chip_smoke.witness_controls``:
+    the batch split as the data ranks split it; on (2, 2) also the scores
+    as two halves of the head vector), which read how far bf16 reordering
+    alone moves the logits.  Checks, each in the exit code: every step's
+    logits within ``chip_smoke.WHOLE_MODEL`` (bf16) and
+    ``chip_smoke.FP32_MODEL`` (fp32); in bf16, every step at most
+    ``CONTROL_FACTOR`` times the largest control's relative RMS at that
+    step; both runs of a witness bit for bit equal.  Beside them, the
+    dry-run of the same two 4-card cells (``launch.dryrun.run_cell`` in a
+    process of its own): its roofline terms and peak bytes a card.
 
 Prints the card's name and power limit and, last, one JSON object (also
-written to ``OUT_DIR/sharding.json``).  ``--cpu-rehearsal`` runs the same
-parts on 4 gloo ranks on the CPU at smoke widths (no numbers to keep: a
-check of the script before a 4-card call).
+written to ``OUT_DIR/sharding.json``), whose ``failed`` names each check
+that failed (``f 2x2 whole_model``, ...); exits 1 if any did.
+``--cpu-rehearsal`` runs the same parts on 4 gloo ranks on the CPU at smoke
+widths (no numbers to keep: a check of the script before a 4-card call).
 """
 
 from __future__ import annotations
@@ -85,8 +95,9 @@ MOE_CAPACITY = 8.0            # (c): drops nothing on either path
 PREFILL_SEQ = 32768           # (d)
 DECODE_BATCH, DECODE_SEQ = 64, 32768        # (f), timed
 DECODE_FROM, DECODE_TIMED = 32758, 8        # (f): the first cur_len, steps after a warm one
-WITNESS_BATCH, WITNESS_SEQ = 8, 4096        # (f), against one card
-WITNESS_LENS = (4093, 4094, 4095, 4096)     # the last at Smax: the clamped write
+#: (f): the mesh's bf16 witness at every step at most this many times the
+#: largest relative RMS of the one-card controls at that step
+CONTROL_FACTOR = 2.0
 START_STEP = 20               # the optimizer's step before a compared step (lr > 0)
 #: (b), (c): the sharded step against one card's, both in bf16 (the CPU
 #: tests' bf16 limits, tests/test_torch_sharded_step.py): the loss relative
@@ -581,46 +592,52 @@ def gathered_whole(rank: int, params):
     return whole if rank == 0 else None
 
 
-def decode_witness(rank: int, cfg, mesh, params, one_params, dev, rng, tol: dict) -> dict:
-    """(f)'s witness: WITNESS_LENS steps of the sharded decode from one
-    seeded cache of (WITNESS_BATCH, WITNESS_SEQ) rows against the one-card
-    decode on rank 0's card from the same params and cache: every step's
-    logits within ``tol`` (rank 0's row; the cache's dtype and the products'
-    are ``init_cache``'s and ``dense_apply``'s defaults)."""
+def decode_witness(rank: int, cfg, mesh, shape, params, one_params, dev, tokens: np.ndarray,
+                   tol: dict) -> dict | None:
+    """(f)'s witness on the mesh of ``shape``: the sharded decode twice from
+    the witness's cache and ``tokens``, each run against the one-card decode
+    on rank 0's card from the same params, cache and tokens (within ``tol``),
+    and the one-card controls against that decode (rank 0's row; the
+    dtypes are ``init_cache``'s and ``dense_apply``'s defaults)."""
     import torch
 
     from repro_torch.launch import steps
-    from repro_torch.models import init_cache
     from repro_torch.parallel import sharding as sh
 
-    arch, cell = cs.arch_shape(cfg, "decode", WITNESS_BATCH, WITNESS_SEQ)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cs.MODEL_SEED + 6)
-    whole = init_cache(cfg, WITNESS_BATCH, WITNESS_SEQ, device=dev)
-    for leaf in (whole["scan"]["k"], whole["scan"]["v"]):
-        for i in range(leaf.shape[0]):
-            leaf[i].copy_(torch.randn(leaf[i].shape, generator=gen, device=dev))
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (WITNESS_BATCH, len(WITNESS_LENS)))
-                              ).to(dev)
-    cache = own_shards(sh.distribute_tree(
-        whole, mesh, sh.cache_specs(whole, mesh, WITNESS_SEQ, WITNESS_BATCH)))
+    arch, cell = cs.arch_shape(cfg, "decode", cs.WITNESS_BATCH, cs.WITNESS_SEQ)
     step = steps.make_serve_step(arch, cell, mesh)
-    gots = [step(params, cache, {"tokens": tokens[:, i:i + 1], "cur_len": t})[0]
-            for i, t in enumerate(WITNESS_LENS)]
+    on_dev = torch.from_numpy(tokens).to(dev)
+    runs = []
+    for _ in range(2):
+        whole = cs.witness_cache(cfg, dev)
+        dtype = str(whole["scan"]["k"].dtype)
+        cache = own_shards(sh.distribute_tree(
+            whole, mesh, sh.cache_specs(whole, mesh, cs.WITNESS_SEQ, cs.WITNESS_BATCH)))
+        del whole
+        runs.append(cs.decode_steps(step, params, cache, on_dev, cs.WITNESS_LENS))
+        del cache
     res = None
     if rank == 0:
-        one = steps.make_serve_step(arch, cell)
-        wants = [one(one_params, whole, {"tokens": tokens[:, i:i + 1], "cur_len": t})[0]
-                 for i, t in enumerate(WITNESS_LENS)]
-        closes = [cs.closeness(g, w, tol) for g, w in zip(gots, wants)]
-        res = {"batch": [WITNESS_BATCH, WITNESS_SEQ], "lens": list(WITNESS_LENS),
-               "dtype": str(whole["scan"]["k"].dtype),
-               "max_abs_err": max(c[0] for c in closes),
-               "tolerance_share": max(c[1] for c in closes),
-               "rel_rms_err": [c[2] for c in closes], "tolerance": tol}
-        res["ok"] = res["tolerance_share"] <= 1.0 and max(res["rel_rms_err"]) <= tol["rel_rms"]
-        del wants
-    del whole, cache, gots
+        want = cs.witness_decode(one_params, cfg, dev, tokens)
+        controls = cs.witness_controls(one_params, cfg, dev, tokens, shape)
+        res = {"batch": [cs.WITNESS_BATCH, cs.WITNESS_SEQ], "lens": list(cs.WITNESS_LENS),
+               "dtype": dtype, "tokens": tokens.tolist(), "tolerance": tol,
+               **cs.distances(runs[0], want, tol),
+               "rel_rms_err_again": cs.distances(runs[1], want, tol)["rel_rms_err"],
+               "repeat_bitwise": all(torch.equal(a, b) for a, b in zip(*runs)),
+               "finite": all(bool(torch.isfinite(g).all()) for g in runs[0]),
+               "controls": {name: cs.distances(got, want, tol) for name, got in controls.items()},
+               # the mesh against each control: 0 where the control is its arithmetic
+               "mesh_vs_controls": {name: cs.distances(runs[0], got, tol)["rel_rms_err"]
+                                    for name, got in controls.items()}}
+        res["control_floor"] = [max(c["rel_rms_err"][i] for c in res["controls"].values())
+                                for i in range(len(cs.WITNESS_LENS))]
+        res["within_controls"] = all(e <= CONTROL_FACTOR * f for e, f in
+                                     zip(res["rel_rms_err"], res["control_floor"]))
+        res["within_tolerance"] = (res["tolerance_share"] <= 1.0
+                                   and max(res["rel_rms_err"]) <= tol["rel_rms"])
+        del want, controls
+    del runs
     empty_cache()
     return res
 
@@ -635,16 +652,15 @@ def part_f(rank: int, dev) -> dict:
     from repro_torch.launch import steps
 
     cfg = yi(48)
-    rng = np.random.default_rng(cs.MODEL_SEED + 5)
     out = {}
-    for key, shape in (("4x1", (4, 1)), ("2x2", (2, 2))):
+    for key, shape in cs.WITNESS_MESHES.items():
         mesh = mesh_mod.make_debug_mesh(*shape, device_type=DEVICE_TYPE)
         params = sharded_params(cfg, mesh, dev)[0]
         # timed, at decode_32k's cache length
         arch, cell = cs.arch_shape(cfg, "decode", DECODE_BATCH, DECODE_SEQ)
         cache = seeded_local_cache(cfg, DECODE_BATCH, DECODE_SEQ, mesh, dev, 1)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (DECODE_BATCH, 1 + DECODE_TIMED))
-                                  ).to(dev)
+        tokens = torch.from_numpy(cs.token_rng("timed", shape).integers(
+            0, cfg.vocab, (DECODE_BATCH, 1 + DECODE_TIMED))).to(dev)
         step = steps.make_serve_step(arch, cell, mesh)
         if DEVICE_TYPE == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -669,16 +685,23 @@ def part_f(rank: int, dev) -> dict:
                "finite": bool(torch.isfinite(logits).all())}
         del cache, logits
         empty_cache()
-        # the witnesses: the same params and one seeded cache, against one card,
-        # as shipped (bf16) and with every product and the cache in fp32
+        # the witnesses: the same params, cache seed and tokens, as shipped
+        # (bf16) and with every product and the cache in fp32
         one_params = gathered_whole(rank, params)
-        row["witness"] = decode_witness(rank, cfg, mesh, params, one_params, dev, rng,
-                                        cs.WHOLE_MODEL)
+        witness = cs.witness_tokens(cfg, shape)
+        row["witness"] = decode_witness(rank, cfg, mesh, shape, params, one_params, dev,
+                                        witness, cs.WHOLE_MODEL)
         with cs.fp32_compute():
-            row["witness_fp32"] = decode_witness(rank, cfg, mesh, params, one_params, dev, rng,
-                                                 cs.FP32_MODEL)
+            row["witness_fp32"] = decode_witness(rank, cfg, mesh, shape, params, one_params,
+                                                 dev, witness, cs.FP32_MODEL)
         if rank == 0:
-            row["ok"] = row["finite"] and all(row[k]["ok"] for k in ("witness", "witness_fp32"))
+            bf16, fp32 = row["witness"], row["witness_fp32"]
+            row["checks"] = {"finite": row["finite"] and bf16["finite"] and fp32["finite"],
+                             "whole_model": bf16["within_tolerance"],
+                             "within_controls": bf16["within_controls"],
+                             "fp32_model": fp32["within_tolerance"],
+                             "repeat_bitwise": bf16["repeat_bitwise"] and fp32["repeat_bitwise"]}
+            row["ok"] = all(row["checks"].values())
         del one_params, params
         empty_cache()
         dist.barrier()
@@ -686,8 +709,14 @@ def part_f(rank: int, dev) -> dict:
         log(rank, f"  (f) yi-9b 48 layers decode on {key}, B={DECODE_BATCH} S={DECODE_SEQ}: "
                   f"step {ms:.1f} ms {[round(t, 1) for t in times]}, "
                   f"{row['tokens_per_s']:.1f} tokens/s, peak memory a card "
-                  f"{row['peak_memory_per_card']}; witness {row['witness']}, in fp32 "
-                  f"{row['witness_fp32']}")
+                  f"{row['peak_memory_per_card']}; checks {row.get('checks')}")
+        for name in ("witness", "witness_fp32") if rank == 0 else ():
+            w = row[name]
+            log(rank, f"    {name} ({w['dtype']}): relative RMS {w['rel_rms_err']}, again "
+                      f"{w['rel_rms_err_again']}, bit for bit {w['repeat_bitwise']}, "
+                      f"{w['tolerance_share']:.4g} of the row allowance; controls "
+                      f"{ {k: c['rel_rms_err'] for k, c in w['controls'].items()} }; "
+                      f"the mesh against them {w['mesh_vs_controls']}")
     return out
 
 
@@ -696,8 +725,10 @@ def run(rank: int, port: int, parts: str, out_dir: str, device_type: str) -> Non
     import torch.distributed as dist
 
     global DEVICE_TYPE, SEQ, PREFILL_SEQ, DECODE_BATCH, DECODE_SEQ, DECODE_FROM
-    global WITNESS_SEQ, WITNESS_LENS
     DEVICE_TYPE = device_type
+    # (f) reads whether cuBLAS's workspace is fixed before CUDA starts here
+    env = {"cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+           "cuda_initialized": torch.cuda.is_initialized()}
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     if device_type == "cuda":
@@ -717,11 +748,11 @@ def run(rank: int, port: int, parts: str, out_dir: str, device_type: str) -> Non
         torch.set_num_threads(1)
         SEQ, PREFILL_SEQ = 64, 128
         DECODE_BATCH, DECODE_SEQ, DECODE_FROM = 8, 64, 60
-        WITNESS_SEQ, WITNESS_LENS = 32, (29, 30, 31, 32)
+        cs.WITNESS_SEQ, cs.WITNESS_LENS = 32, (29, 30, 31, 32)
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                 world_size=WORLD, rank=rank)
     out = {"world": WORLD, "card": cs.card_line() if rank == 0 and device_type == "cuda"
-           else None}
+           else None, "env": {**env, "set_before_cuda": not env["cuda_initialized"]}}
     fns = {"a": part_a, "b": part_b, "c": part_c, "d": part_d, "e": part_e, "f": part_f}
     try:
         for part in parts:
@@ -753,9 +784,12 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     mp.spawn(run, args=(cs.free_port(), args.parts, args.out_dir, device_type), nprocs=WORLD)
     out = json.loads(Path(args.out_dir, "sharding.json").read_text())
-    failed = [part for part in args.parts if part in "bcf"
+    failed = [part for part in args.parts if part in "bc"
               and not all(row.get("ok", True) for row in out[part].values()
                           if isinstance(row, dict))]
+    if "f" in args.parts:
+        failed += [f"f {key} {check}" for key in cs.WITNESS_MESHES
+                   for check, ok in out["f"][key]["checks"].items() if not ok]
     if "d" in args.parts and not out["d"].get("ok"):
         failed.append("d")
     if "e" in args.parts and not out["e"].get("next_step_equal"):
