@@ -32,6 +32,7 @@ from repro_torch.core.auth import sponge_mac
 from repro_torch.core.packets import ReplStrategy, Resiliency
 from repro_torch.policy.functional import write_plan
 from repro_torch.policy.spec import PolicySpec, RS, SpongeAuth, Tree
+from repro_torch.trace.host import span
 
 #: bytes of a leaf that its manifest MAC covers
 MAC_BYTES = 64
@@ -127,11 +128,20 @@ def path_str(path: tuple) -> str:
 def _snapshot(leaf: Any) -> torch.Tensor | np.ndarray:
     """A private host copy of ``leaf``: training may mutate the original in
     place while the background write is still reading the copy."""
-    if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
-        t = t.cpu() if t.device.type != "cpu" else t.clone()
-        return t.contiguous()
-    return np.array(leaf, copy=True, order="C")
+    with span("ckpt.snapshot") as s:
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach()
+            t = t.cpu() if t.device.type != "cpu" else t.clone()
+            out = t.contiguous()
+        else:
+            out = np.array(leaf, copy=True, order="C")
+        if s:
+            s.set(bytes=_nbytes(out))
+        return out
+
+
+def _nbytes(x: torch.Tensor | np.ndarray) -> int:
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else x.nbytes
 
 
 def _leaf_to_bytes(x: torch.Tensor | np.ndarray) -> tuple[np.ndarray, dict]:
@@ -183,19 +193,24 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         """Snapshot on the caller thread, write on a background thread.  A
         failed write raises from the next ``wait`` (``blocking`` waits)."""
-        snap = [(path_str(p), _snapshot(leaf)) for p, leaf in flatten(tree)]
-        self.wait()
-
-        def worker():
-            try:
-                self._write(step, snap)
-            except Exception as exc:   # raised again by wait()
-                self._error = exc
-
-        self._pending = threading.Thread(target=worker, daemon=True)
-        self._pending.start()
-        if blocking:
+        with span("ckpt.save", rid=step) as s:
+            snap = [(path_str(p), _snapshot(leaf)) for p, leaf in flatten(tree)]
+            if s:
+                s.set(leaves=len(snap), bytes=sum(_nbytes(x) for _, x in snap))
             self.wait()
+            parent = s.sid
+
+            def worker():
+                try:
+                    with span("ckpt.write", rid=step, parent=parent, leaves=len(snap)):
+                        self._write(step, snap)
+                except Exception as exc:   # raised again by wait()
+                    self._error = exc
+
+            self._pending = threading.Thread(target=worker, daemon=True)
+            self._pending.start()
+            if blocking:
+                self.wait()
 
     def _write(self, step: int, snap: list[tuple[str, Any]]) -> None:
         t0 = time.time()
@@ -242,7 +257,8 @@ class CheckpointManager:
 
     def wait(self) -> None:
         if self._pending is not None and self._pending.is_alive():
-            self._pending.join()
+            with span("ckpt.wait", wait=True):
+                self._pending.join()
         error, self._error = self._error, None
         if error is not None:
             raise error
@@ -263,22 +279,25 @@ class CheckpointManager:
             raise FileNotFoundError("no checkpoints saved")
         manifest = self._manifests[step]
         out: dict[str, torch.Tensor] = {}
-        for leaf in manifest["leaves"]:
-            # All stripes of the leaf read (and, degraded, reconstructed)
-            # together: read_objects batches every same-pattern stripe
-            # through ONE RSCode.decode_stripes call.
-            layouts = [self.cluster.meta.lookup(s["oid"])
-                       for s in leaf["stripes"]]
-            raws = self.cluster.read_objects(layouts)
-            raw = np.empty(leaf["bytes"], np.uint8)
-            off = 0
-            for got, stripe in zip(raws, leaf["stripes"]):
-                raw[off : off + stripe["size"]] = np.frombuffer(
-                    got, np.uint8, count=stripe["size"])
-                off += stripe["size"]
-            if _mac(raw, self.cluster.meta.authority.key) != leaf["mac"]:
-                raise IOError(f"integrity check failed for {leaf['path']}")
-            out[leaf["path"]] = _bytes_to_leaf(raw, leaf["meta"])
+        with span("ckpt.restore", rid=step, leaves=len(manifest["leaves"]),
+                  bytes=sum(leaf["bytes"] for leaf in manifest["leaves"])):
+            for leaf in manifest["leaves"]:
+                # All stripes of the leaf read (and, degraded, reconstructed)
+                # together: read_objects batches every same-pattern stripe
+                # through ONE RSCode.decode_stripes call.
+                layouts = [self.cluster.meta.lookup(s["oid"])
+                           for s in leaf["stripes"]]
+                raws = self.cluster.read_objects(layouts)
+                with span("ckpt.assemble", bytes=leaf["bytes"]):
+                    raw = np.empty(leaf["bytes"], np.uint8)
+                    off = 0
+                    for got, stripe in zip(raws, leaf["stripes"]):
+                        raw[off : off + stripe["size"]] = np.frombuffer(
+                            got, np.uint8, count=stripe["size"])
+                        off += stripe["size"]
+                    if _mac(raw, self.cluster.meta.authority.key) != leaf["mac"]:
+                        raise IOError(f"integrity check failed for {leaf['path']}")
+                    out[leaf["path"]] = _bytes_to_leaf(raw, leaf["meta"])
         if treedef is None:
             return out
         return unflatten(treedef, out)

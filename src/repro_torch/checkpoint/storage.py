@@ -35,9 +35,12 @@ import numpy as np
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.auth import CapabilityAuthority, Rights
 from repro_torch.core.handlers import DFSClient, DFSNode, Router
-from repro_torch.core.packets import OpType, ReplicaCoord, ReplStrategy, Resiliency
+from repro_torch.core.packets import (
+    RDMA_HEADER_SIZE, OpType, ReplicaCoord, ReplStrategy, Resiliency,
+)
 from repro_torch.namenode.placement import PlacementPolicy, RoundRobinPlacement
 from repro_torch.policy.functional import write_plan
+from repro_torch.trace.host import span
 
 
 @dataclasses.dataclass
@@ -59,13 +62,52 @@ class ObjectLayout:
     lost: bool = False
 
 
+class _SpannedAuthority(CapabilityAuthority):
+    """The cluster's authority: the nodes' header handlers run its
+    capability check inside a ``pp.auth`` host span."""
+
+    def verify(self, cap, **kwargs) -> bool:
+        with span("pp.auth") as s:
+            ok = super().verify(cap, **kwargs)
+            s.set(ok=ok)
+        return ok
+
+
+class _SpannedClient(DFSClient):
+    """The cluster's packet client: each write call (packetize, delivery,
+    the nodes' handlers, the ack) inside a ``pp.write`` host span, each read
+    call (request, the node's read handler, the READ_RESP stream,
+    reassembly) inside a ``pp.read``, with the packets and bytes each
+    carried."""
+
+    def write(self, capability, data, targets, *args, **kwargs) -> list[int]:
+        before = self.router.packets_delivered
+        with span("pp.write") as s:
+            greqs = super().write(capability, data, targets, *args, **kwargs)
+            if s:
+                s.set(packets=self.router.packets_delivered - before,
+                      bytes=int(np.asarray(data, np.uint8).size))
+        return greqs
+
+    def read(self, capability, coord: ReplicaCoord, size: int) -> np.ndarray:
+        before = self.router.packets_delivered
+        with span("pp.read") as s:
+            out = super().read(capability, coord, size)
+            if s:
+                per_packet = self.router.nodes[coord.node].mtu - RDMA_HEADER_SIZE
+                responses = max(1, -(-size // per_packet))
+                s.set(packets=self.router.packets_delivered - before + responses,
+                      bytes=int(size))
+        return out
+
+
 class MetadataService:
     """Control plane: namespace, extent allocation, capabilities."""
 
     def __init__(self, num_nodes: int, node_capacity: int,
                  key: bytes | None = None,
                  placement: PlacementPolicy | None = None):
-        self.authority = CapabilityAuthority(key or secrets.token_bytes(16))
+        self.authority = _SpannedAuthority(key or secrets.token_bytes(16))
         self.num_nodes = num_nodes
         self.node_capacity = node_capacity
         self._alloc = [0] * num_nodes  # bump allocator per node
@@ -179,7 +221,7 @@ class StorageCluster:
                     storage_size=node_capacity)
             for i in range(num_nodes)
         ]
-        self.client = DFSClient(client_id, self.router)
+        self.client = _SpannedClient(client_id, self.router)
         self.client_id = client_id
         self.capability = self.meta.issue_capability(client_id)
         self.spill_dir = spill_dir
@@ -859,7 +901,7 @@ class StorageCluster:
             meta = pickle.load(f)
         cluster = cls(meta["num_nodes"], meta["capacity"], client_id=client_id,
                       spill_dir=dirname, device=device)
-        cluster.meta.authority = CapabilityAuthority(meta["key"])
+        cluster.meta.authority = _SpannedAuthority(meta["key"])
         for node in cluster.nodes:
             node.authority = cluster.meta.authority
             path = os.path.join(dirname, f"node{node.node_id}.bin")
@@ -911,7 +953,7 @@ class StorageCluster:
         :meth:`to_state`'s dict."""
         cluster = cls(state["num_nodes"], state["capacity"],
                       client_id=client_id, device=device)
-        cluster.meta.authority = CapabilityAuthority(state["key"])
+        cluster.meta.authority = _SpannedAuthority(state["key"])
         for node, mem in zip(cluster.nodes, state["nodes"], strict=True):
             node.authority = cluster.meta.authority
             node.storage.mem[:] = np.asarray(mem, dtype=np.uint8)

@@ -27,6 +27,7 @@ import numpy as np
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import gf256
+from repro_torch.trace.host import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +86,9 @@ class RSCode:
         if backend == "torch":
             from repro_torch.kernels import ops
 
-            return ops.rs_encode_stripes(
+            return _host(ops.rs_encode_stripes(
                 data[None], self.k, self.m, kind=self.kind, device=device
-            )[0].cpu().numpy()
+            )[0])
         raise ValueError(f"unknown backend {backend!r}")
 
     def encode_stripes(
@@ -105,16 +106,17 @@ class RSCode:
         s, _, length = data.shape
         if self.m == 0:
             return np.zeros((s, 0, length), dtype=np.uint8)
-        if backend == "numpy":
-            flat = data.transpose(1, 0, 2).reshape(self.k, s * length)
-            out = gf256.gf_matmul(self.parity_matrix, flat)
-            return out.reshape(self.m, s, length).transpose(1, 0, 2)
-        if backend == "torch":
-            from repro_torch.kernels import ops
+        with span("ec.encode", stripes=s, bytes=data.nbytes):
+            if backend == "numpy":
+                flat = data.transpose(1, 0, 2).reshape(self.k, s * length)
+                out = gf256.gf_matmul(self.parity_matrix, flat)
+                return out.reshape(self.m, s, length).transpose(1, 0, 2)
+            if backend == "torch":
+                from repro_torch.kernels import ops
 
-            return ops.rs_encode_stripes(
-                data, self.k, self.m, kind=self.kind, device=device
-            ).cpu().numpy()
+                return _host(ops.rs_encode_stripes(
+                    data, self.k, self.m, kind=self.kind, device=device
+                ))
         raise ValueError(f"unknown backend {backend!r}")
 
     def decode(
@@ -145,7 +147,7 @@ class RSCode:
         if backend == "torch":
             from repro_torch.kernels import ops
 
-            return ops.gf_matmul_bytes(inv, stacked, device=device).cpu().numpy()
+            return _host(ops.gf_matmul_bytes(inv, stacked, device=device))
         return gf256.gf_matmul(inv, stacked)
 
     def decode_stripes(
@@ -168,24 +170,25 @@ class RSCode:
             raise ValueError(
                 f"unrecoverable: only {len(present)} of >= {self.k} shards present"
             )
-        missing_data = [i for i in range(self.k) if shards[i] is None]
-        if not missing_data:
-            return np.stack(
-                [np.asarray(shards[i], dtype=np.uint8) for i in range(self.k)], axis=1
-            )
-        rows = present[: self.k]
-        inv = gf256.gf_mat_inv(self.generator[rows])
-        stacked = np.stack(
-            [np.asarray(shards[i], dtype=np.uint8) for i in rows], axis=1
-        )  # (S, k, L)
-        if backend == "torch":
-            from repro_torch.kernels import ops
+        with span("ec.decode") as sp:
+            missing_data = [i for i in range(self.k) if shards[i] is None]
+            rows = present[: self.k] if missing_data else list(range(self.k))
+            stacked = np.stack(
+                [np.asarray(shards[i], dtype=np.uint8) for i in rows], axis=1
+            )  # (S, k, L)
+            if sp:
+                sp.set(stripes=stacked.shape[0], bytes=stacked.nbytes)
+            if not missing_data:
+                return stacked
+            inv = gf256.gf_mat_inv(self.generator[rows])
+            if backend == "torch":
+                from repro_torch.kernels import ops
 
-            return ops.gf_matmul_bytes_batched(inv, stacked, device=device).cpu().numpy()
-        s, _, length = stacked.shape
-        flat = stacked.transpose(1, 0, 2).reshape(self.k, s * length)
-        out = gf256.gf_matmul(inv, flat)
-        return out.reshape(self.k, s, length).transpose(1, 0, 2)
+                return _host(ops.gf_matmul_bytes_batched(inv, stacked, device=device))
+            s, _, length = stacked.shape
+            flat = stacked.transpose(1, 0, 2).reshape(self.k, s * length)
+            out = gf256.gf_matmul(inv, flat)
+            return out.reshape(self.k, s, length).transpose(1, 0, 2)
 
     def reconstruct_shard(
         self, shards: Sequence[np.ndarray | None], index: int
@@ -195,6 +198,15 @@ class RSCode:
         if index < self.k:
             return data[index]
         return gf256.gf_matmul(self.parity_matrix[index - self.k : index - self.k + 1], data)[0]
+
+
+def _host(result) -> np.ndarray:
+    """A kernel's result as a numpy array, inside a ``copy.d2h`` host span
+    where it comes off a device."""
+    if result.device.type == "cpu":
+        return result.numpy()
+    with span("copy.d2h", bytes=result.numel() * result.element_size()):
+        return result.cpu().numpy()
 
 
 _PARITY_CACHE: dict[tuple[int, int, str], np.ndarray] = {}
@@ -404,7 +416,7 @@ def stream_encode(
         inter = ops.gf_scale_streams(parity_mat, padded, device=device)
         # Stage 2, one launch: batched parity-node aggregation, straight
         # from the device-resident streams.
-        parity = ops.xor_reduce_bytes_batched(inter, device=device).cpu().numpy()
+        parity = _host(ops.xor_reduce_bytes_batched(inter, device=device))
     else:
         inter = gf256.gf_mul_vec(parity_mat[:, :, None], padded[None, :, :])
         parity = np.bitwise_xor.reduce(inter, axis=1)

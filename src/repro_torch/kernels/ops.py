@@ -32,6 +32,7 @@ from repro_torch.core import gf256
 from repro_torch.core.auth import MAC_ROUNDS
 from repro_torch.kernels import flash_attention as flash_attention_kernel
 from repro_torch.kernels import gf256_encode, ref, xor_reduce
+from repro_torch.trace.host import span
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -45,12 +46,22 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def _upload(x: torch.Tensor, device: str | torch.device, dtype=None) -> torch.Tensor:
+    """``x`` on ``device`` (in ``dtype`` when given), inside a ``copy.h2d``
+    host span where that moves it from the host to a device."""
+    dev = torch.device(device)
+    if x.device.type != "cpu" or dev.type == "cpu":
+        return x.to(device=dev, dtype=dtype)
+    with span("copy.h2d", bytes=x.numel() * x.element_size()):
+        return x.to(device=dev, dtype=dtype)
+
+
 def _bytes_on(x, device: str | torch.device) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a uint8 tensor on ``device``."""
     dev = resolve_device(device)
     if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=torch.uint8)
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(dev)
+        return _upload(x, dev, torch.uint8)
+    return _upload(torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)), dev)
 
 
 @functools.lru_cache(maxsize=256)
@@ -59,7 +70,7 @@ def _coeffs_device(coeff_bytes: bytes, n: int, k: int, device: torch.device) -> 
     feeds a distinct inverted submatrix for every erasure pattern, and the
     steady state must not upload the same matrix again."""
     host = np.frombuffer(coeff_bytes, dtype=np.uint8).reshape(n, k)
-    return torch.from_numpy(host.copy()).to(device)
+    return _upload(torch.from_numpy(host.copy()), device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -195,7 +206,7 @@ def rs_block_bitmatrix(k: int, m: int, kind: str, device: torch.device) -> torch
     ``device``: out-row i*8+ob, in-col j*8+ib."""
     bm = gf256.parity_bitmatrix(gf256.generator_matrix(k, m, kind)[k:])   # (m, k, 8, 8)
     big = np.transpose(bm, (0, 2, 1, 3)).reshape(8 * m, 8 * k).astype(np.int8)
-    return torch.from_numpy(big).to(device)
+    return _upload(torch.from_numpy(big), device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -282,8 +293,8 @@ _SPONGE_IV = (0x736F6D65, 0x646F7261, 0x6C796765, 0x74656462)
 def _words_on(x, device: torch.device) -> torch.Tensor:
     """uint32 words (numpy array or tensor) as int64 values on ``device``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int64)
-    return torch.from_numpy(np.asarray(x, dtype=np.uint32).astype(np.int64)).to(device)
+        return _upload(x, device, torch.int64)
+    return _upload(torch.from_numpy(np.asarray(x, dtype=np.uint32).astype(np.int64)), device)
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -352,8 +363,8 @@ def bulk_verify(
 def _float_on(x, device: torch.device) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a tensor on ``device``, dtype kept."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return _upload(x, device)
+    return _upload(torch.from_numpy(np.ascontiguousarray(x)), device)
 
 
 def flash_attention(
