@@ -40,7 +40,12 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    within 5e-4 relative RMS error (fp32: rtol = atol = 3e-4, the
    reference's own; see SAME_ARITHMETIC); at whisper's and prefill_32k's
    shapes, planted faults (the mask of keys past S dropped, one KV tile
-   skipped) must fail that tolerance.  Each
+   skipped) must fail that tolerance.  The training pair at yi-9b's
+   train_4k attention (``PAIR_CASE``): the forward writing lse against its
+   plain version, and the backward's dq, dk and dv against the plain
+   training backward under ``PAIR_GRADS``, twice bit for bit; a backward
+   with P or dS rounded once to bf16 (``pair_bwd_rounded_once``) must fail
+   that tolerance; the backward's kernels timed by name.  Each
    kernel's median time over CUDA-event-timed runs, its bound, its plain
    version's time and, where one PyTorch call computes the same function,
    that call's time (``library_ms``; the port never calls it).  A
@@ -96,10 +101,13 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    remat under ``torch.utils.checkpoint``, AdamW in place).  (a) yi-9b at
    its published widths, its depth cut to 8 of 48 layers (``TRAIN_DEPTH``:
    1.91 B params, 30.5 GB of training state), B=1, S=4096, remat on: finite
-   losses; step 0's loss equal, bit for bit, to ``loss_fn`` under no_grad
-   with blockwise attention (the training forward's function), and within a
-   limit derived from ``WHOLE_MODEL`` of the same loss from a prefill on the
-   flash kernel (one launch a layer; the train steps launch none); the
+   losses; step 0's loss equal, bit for bit, to the training forward's
+   function under no_grad (on the card, where the kernel pair trains, the
+   prefill on the flash kernel, one launch a layer; else ``loss_fn`` with
+   blockwise attention's plain forward), and the two within a limit
+   derived from ``WHOLE_MODEL``; the train steps launch the forward-only
+   kernel never, and the pair 3 forwards and 2 backwards a layer a step
+   (remat on, then off; their launches are the pair's rows'); the
    median step ms over 3 steps after a warm one, tokens/s, model FLOPs and
    their share of the bf16 peak, and the peak memory, with remat and
    without; with deterministic algorithms, the gradients with remat equal
@@ -175,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import operator
 import os
 import re
@@ -234,6 +243,26 @@ FLASH_CASES = [
     ("zamba2-2.7b shared block", 2, 4096, 32, 32, 160, 160, "bfloat16", True, 20, 3),
     ("yi-9b fp32", 1, 4096, 32, 4, 128, 128, "float32", True, 10, 3),
 ]
+# the training pair at yi-9b's train_4k attention, which a yi-9b-16l train
+# step runs 32 forwards and 16 backwards of: (case, B, S, H, Hkv, D)
+PAIR_CASE = ("yi-9b train_4k", 1, 4096, 32, 4, 128)
+# The backward kernel against its plain version, both keeping P and dS at
+# fp32 precision: they differ in the order of fp32 sums, then round once to
+# bf16 each.  Elementwise, one bf16 ulp plus 1e-3 of the row's RMS, and
+# ``zero_atol`` only where the function is 0 in exact arithmetic
+# (``pair_exact_zeros``: a query row that sees one key has dP = delta, so
+# its dS is 0, and both sides' fp32 sums of dP and delta leave residues
+# of about 1e-7 there, each its own).  In RMS over the other elements, the
+# kernel's result is no further from the plain backward's unrounded fp32
+# result than that result's own rounding to bf16 is, times ``rms_factor``
+# (a sum on a bf16 tie rounds either way).  P or dS rounded once to bf16
+# adds an error about as large as that rounding, ~1.4 times it in RMS:
+# ``pair_bwd_rounded_once`` plants it, and the check must reject it.
+PAIR_GRADS = {"rtol": 2 ** -7, "row_atol": 1e-3, "zero_atol": 1e-4, "rms_factor": 1.05}
+# products per visible (row, key) pair: the model's (S, dP, dV, dK, dQ), and
+# the kernel's, with P and dS in three bf16 terms (S and dP in each of its
+# dK/dV and dQ kernels, 3 each for dV, dK, dQ)
+PAIR_BWD_PRODUCTS = {"model": 5, "with_splits": 13}
 RAGGED = (1, 31, 33, 100, 1000, 4108, 1_000_003)   # 4108 % 16 == 12
 MXU_RAGGED = (1, 127, 1000)
 YI = dict(d_model=4096, n_heads=32, n_kv_heads=4, head_dim=128)          # arXiv:2403.04652
@@ -834,6 +863,243 @@ def check_attention_kernels(dev) -> list[dict]:
     return [flash, mxu]
 
 
+def pair_bwd_rounded_once(q, k, v, out, dout, lse, causal, q_offset, rounded: str):
+    """What a backward kernel that rounded ``rounded`` ("P" or "dS") once to
+    bf16 before its products would return: the plain training backward
+    (``fa.flash_attention_bwd_plain``'s arithmetic, the kernels' lse
+    layout) with that one rounding planted."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import _causal_mask, _group_q, _row_dot
+
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    lse = lse[..., :sq].permute(0, 2, 1).reshape(b, sq, hkv, h // hkv)
+    scale = 1.0 / math.sqrt(d)
+    qg = _group_q(q, hkv).float() * scale
+    dog = _group_q(dout, hkv).float()
+    delta = _row_dot(_group_q(out, hkv).float(), dog)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for start in range(0, k.shape[1], fa.KV_TILE):
+        kc32 = k[:, start:start + fa.KV_TILE].float()
+        vc32 = v[:, start:start + fa.KV_TILE].float()
+        p = torch.exp(torch.einsum("bqgrd,bkgd->bqgrk", qg, kc32) - lse[..., None])
+        if causal:
+            mask = _causal_mask(start, kc32.shape[1], sq, q_offset, q.device)
+            p = p.masked_fill(~mask[None, :, None, None, :], 0.0)
+        ds = p * (torch.einsum("bqgrd,bkgd->bqgrk", dog, vc32) - delta[..., None])
+        if rounded == "P":
+            p = p.bfloat16().float()
+        else:
+            ds = ds.bfloat16().float()
+        dvs.append(torch.einsum("bqgrk,bqgrd->bkgd", p, dog))
+        dq += torch.einsum("bqgrk,bkgd->bqgrd", ds, kc32) * scale
+        dks.append(torch.einsum("bqgrk,bqgrd->bkgd", ds, qg))
+    return (dq.reshape(b, sq, h, d).to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+def pair_exact_zeros(sq: int, skv: int, causal: bool, q_offset: int, device) -> tuple:
+    """Where dq, dk and dv are 0 in exact arithmetic, as (1, S, 1, 1) masks:
+    dq on the query rows that see exactly one key (their dS is 0), dk on
+    the keys that no row seeing more than one key sees, dv on the keys no
+    row sees."""
+    import torch
+
+    rows = q_offset + torch.arange(sq, device=device)[:, None]
+    keys = torch.arange(skv, device=device)[None, :]
+    seen = keys <= rows if causal else torch.ones((sq, skv), dtype=torch.bool, device=device)
+    single = seen.sum(dim=1) == 1
+    return (single.reshape(1, sq, 1, 1),
+            ~(seen & ~single[:, None]).any(dim=0).reshape(1, skv, 1, 1),
+            ~seen.any(dim=0).reshape(1, skv, 1, 1))
+
+
+def pair_closeness(got, want, want32, exact_zero, tol: dict = PAIR_GRADS) -> dict:
+    """A gradient of the backward kernel, ``got`` (bf16), against its plain
+    version's ``want`` (bf16) and unrounded ``want32`` under ``tol`` (see
+    PAIR_GRADS), ``exact_zero`` its mask from :func:`pair_exact_zeros`: the
+    largest |got - want|, the largest share of its allowance any element
+    uses, the RMS distance from ``want32`` over the other elements as a
+    multiple of the plain result's own rounding there, and whether both are
+    within ``tol``."""
+    import torch
+
+    got, want, want32 = got.float(), want.float(), want32.float()
+    zero = exact_zero.expand_as(want)
+    diff = (got - want).abs()
+    row_rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+    allowed = (tol["rtol"] * want.abs() + tol["row_atol"] * row_rms
+               + torch.where(zero, tol["zero_atol"], 0.0))
+    share = float(torch.where(diff == 0, 0.0, diff / allowed).max())
+    off = float(torch.where(zero, 0.0, got - want32).norm())
+    rounding = float(torch.where(zero, 0.0, want - want32).norm())
+    ratio = off / rounding if rounding else (0.0 if off == 0 else math.inf)
+    return {"max_abs_err": float(diff.max()), "tolerance_share": share, "rms_ratio": ratio,
+            "ok": bool(torch.isfinite(got).all()) and share <= 1.0
+            and ratio <= tol["rms_factor"]}
+
+
+def check_pair_kernels(dev) -> list[dict]:
+    """Phase 2, third slice: the training pair at ``PAIR_CASE``, each kernel
+    against its plain version on the same seeded inputs; a backward with P
+    or dS rounded once to bf16 must fail the backward's tolerance.  Times,
+    bounds (operations: the backward's counted with its splits and as the
+    model's 5 products), the backward's kernels by name, and SDPA's
+    forward and backward on the same tensors as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    name, b, s, h, hkv, d = PAIR_CASE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 28)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, dout = draw(b, s, h, d), draw(b, s, hkv, d), draw(b, s, hkv, d), draw(b, s, h, d)
+    shape = f"q {(b, s, h, d)} k, v {(b, s, hkv, d)} bf16, causal"
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
+    check(torch.equal(out, fa.flash_attention_fwd(q, k, v, True)),
+          "flash_attention_fwd_lse's out is not flash_attention_fwd's")
+    want_out, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v, True)
+    fwd_close = assert_close(out, want_out, SAME_ARITHMETIC["bfloat16"],
+                             f"flash_attention_fwd_lse {name}")
+    lse_err = float((lse - want_lse).abs().max())
+    check(lse_err <= 1e-5, f"flash_attention_fwd_lse {name}: lse off by {lse_err}")
+
+    grads = fa.flash_attention_bwd(q, k, v, out, dout, lse, True)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, lse, True)
+    check(all(torch.equal(x, y) for x, y in zip(grads, again, strict=True)),
+          f"flash_attention_bwd {name}: two calls differ")
+    del again
+    want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, True)
+    want32 = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, out, dout)), lse, True)
+    zeros = pair_exact_zeros(s, s, True, 0, dev)
+    grad_names = ("dq", "dk", "dv")
+    close = {g: pair_closeness(*args) for g, *args
+             in zip(grad_names, grads, want, want32, zeros, strict=True)}
+    for g, c in close.items():
+        check(c["ok"], f"flash_attention_bwd {name}: {g} differs beyond {PAIR_GRADS}: {c}")
+    planted = {}
+    for rounded in ("P", "dS"):
+        wrong = pair_bwd_rounded_once(q, k, v, out, dout, lse, True, 0, rounded)
+        planted[rounded] = {g: pair_closeness(*args) for g, *args
+                            in zip(grad_names, wrong, want, want32, zeros, strict=True)}
+        check(not all(c["ok"] for c in planted[rounded].values()),
+              f"planted fault passed: {rounded} rounded once to bf16")
+        del wrong
+
+    pairs = b * h * s * (s + 1) // 2
+    fwd_flops = 2 * pairs * 2 * d
+    bwd_flops = {key: n * pairs * 2 * d for key, n in PAIR_BWD_PRODUCTS.items()}
+    elem = q.element_size()
+    fwd_bytes = elem * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
+    # q, k, v, out, dout read, dq, dk, dv written, lse read, and each query
+    # head's fp32 dK and dV share written and read back
+    bwd_bytes = (elem * (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + dout.numel())
+                 + 4 * lse.numel() + 2 * 2 * 4 * b * s * h * d)
+    peak = PEAK_FLOPS["bfloat16"]
+    fwd_row = {
+        "name": "flash_attention_fwd_lse", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82, writing lse", "launches": None,
+        **fwd_close, "tolerance": SAME_ARITHMETIC["bfloat16"], "lse_max_abs_err": lse_err,
+        "ms": median_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, True), KERNEL_RUNS),
+        "plain_ms": median_ms(lambda: fa.flash_attention_fwd_lse_plain(q, k, v, True),
+                              PLAIN_RUNS),
+        "bound_ms": max(fwd_flops / peak, fwd_bytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if fwd_flops / peak >= fwd_bytes / HBM_BYTES_PER_S else "bytes",
+        "shape": shape, "flops": fwd_flops, "bytes": fwd_bytes,
+    }
+    bwd_row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: the TPU kernel is forward only (src/repro/models/attention.py:150)",
+        "launches": None, "max_abs_err": max(c["max_abs_err"] for c in close.values()),
+        "tolerance": PAIR_GRADS, "tolerance_share": max(c["tolerance_share"]
+                                                        for c in close.values()),
+        "rms_ratio": max(c["rms_ratio"] for c in close.values()), "grads": close,
+        "planted_faults": planted, "repeat_bitwise": True,
+        "ms": median_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, True),
+                        KERNEL_RUNS),
+        "plain_ms": median_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, True),
+                              PLAIN_RUNS),
+        "bound_ms": max(bwd_flops["with_splits"] / peak, bwd_bytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_ms_model_products": max(bwd_flops["model"] / peak,
+                                       bwd_bytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if bwd_flops["model"] / peak >= bwd_bytes / HBM_BYTES_PER_S
+                     else "bytes"),
+        "shape": shape, "flops": bwd_flops, "bytes": bwd_bytes,
+    }
+    fwd_row["tflops"] = fwd_flops / fwd_row["ms"] / 1e9
+    bwd_row["tflops"] = {key: f / bwd_row["ms"] / 1e9 for key, f in bwd_flops.items()}
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fa.flash_attention_bwd(q, k, v, out, dout, lse, True)
+            torch.cuda.synchronize()
+        bwd_row["kernels_ms"] = {e.key[:60]: e.device_time_total / 1e3 / 5
+                                 for e in prof.key_averages()
+                                 if e.device_time_total > 0 and "flash_bwd" in e.key}
+
+    # the yardstick: SDPA on (B,H,S,D) views, forward and backward (its
+    # backward rounds P and dS to bf16 before their products, so it is held
+    # against nothing; its closeness is reported).  The port never calls it.
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    try:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), dout.transpose(1, 2),
+                                        retain_graph=True)
+    except RuntimeError as exc:
+        for row in (fwd_row, bwd_row):
+            row["library_ms"] = None
+            row["library_note"] = f"scaled_dot_product_attention refused: {str(exc)[:160]}"
+    else:
+        bwd_row["library_closeness"] = {
+            g: pair_closeness(x.transpose(1, 2), *args)
+            for g, x, *args in zip(grad_names, lib_grads, want, want32, zeros, strict=True)}
+        with torch.no_grad():
+            fwd_row["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), KERNEL_RUNS)
+        bwd_row["library_ms"] = median_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True), KERNEL_RUNS)
+        del lib_out, lib_grads
+    del want, want32, grads, qt, kt, vt
+    torch.cuda.empty_cache()
+    lib = {key: "refused" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
+           for key, row in (("fwd", fwd_row), ("bwd", bwd_row))}
+    print(f"  flash_attention_fwd_lse {name} {shape}: {fwd_row['ms']:.3f} ms = "
+          f"{fwd_row['tflops']:.1f} TFLOP/s (plain {fwd_row['plain_ms']:.3f} ms, bound "
+          f"{fwd_row['bound_ms']:.3f} ms, library {lib['fwd']}), max |err| "
+          f"{fwd_close['max_abs_err']:.3g} ({fwd_close['tolerance_share']:.3g} of the "
+          f"allowance), lse max |err| {lse_err:.3g}", flush=True)
+    print(f"  flash_attention_bwd {name}: {bwd_row['ms']:.3f} ms = "
+          f"{bwd_row['tflops']['with_splits']:.1f} TFLOP/s with its splits, "
+          f"{bwd_row['tflops']['model']:.1f} of the model's (plain {bwd_row['plain_ms']:.3f} ms, "
+          f"bound {bwd_row['bound_ms']:.3f} ms with the splits, "
+          f"{bwd_row['bound_ms_model_products']:.3f} ms for 5 products, library {lib['bwd']}); "
+          f"kernels {bwd_row.get('kernels_ms')}; two calls bit for bit", flush=True)
+    for g, c in close.items():
+        print(f"    {g}: max |err| {c['max_abs_err']:.3g}, {c['tolerance_share']:.3g} of the "
+              f"allowance, {c['rms_ratio']:.4f} x the plain result's own rounding in RMS",
+              flush=True)
+    for rounded, grads_close in planted.items():
+        print(f"    planted fault '{rounded} rounded once to bf16': rejected, RMS "
+              f"{ {g: round(c['rms_ratio'], 4) for g, c in grads_close.items()} } x the "
+              f"rounding", flush=True)
+    if "library_closeness" in bwd_row:
+        ratios = {g: round(c["rms_ratio"], 4) for g, c in bwd_row["library_closeness"].items()}
+        print(f"    library backward: RMS {ratios} x the rounding", flush=True)
+    return [fwd_row, bwd_row]
+
+
 def drive_entry_points(dev) -> None:
     """Phase 3a: the public entry points against the numpy backend."""
     from repro_torch.core.erasure import RSCode, stream_encode
@@ -944,7 +1210,7 @@ def drive_attention_path(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
     from repro_torch.models.attention import (
-        blockwise_attention, gqa_apply, gqa_decode, gqa_init, mla_apply, mla_decode, mla_init)
+        gqa_apply, gqa_decode, gqa_init, mla_apply, mla_decode, mla_init)
     from repro_torch.models.layers import apply_rope, dense_apply
 
     tol, same = OTHER_ROUNDING, SAME_ARITHMETIC["bfloat16"]
@@ -971,7 +1237,7 @@ def drive_attention_path(dev) -> dict:
     errors["gqa_flash_vs_plain"] = assert_close(
         flash, flash_attention_fwd_plain(q, k, v, True), same, "yi-9b flash vs plain")
     errors["gqa_flash_vs_blockwise"] = assert_close(
-        flash, blockwise_attention(q, k, v, True, 512, 0), tol, "yi-9b flash vs blockwise")
+        flash, blockwise_plain(q, k, v, True, 512, 0), tol, "yi-9b flash vs blockwise")
     errors["gqa_layer_with_flash_vs_apply"] = assert_close(
         dense_apply(p["wo"], flash.reshape(b, s, h * hd)), out, tol, "yi-9b layer via flash")
     cache_k = torch.zeros((b, s, hkv, hd), dtype=bf16, device=dev)
@@ -1002,7 +1268,7 @@ def drive_attention_path(dev) -> dict:
     errors["mla_flash_vs_plain"] = assert_close(
         flash, flash_attention_fwd_plain(q, k, v, True), same, "deepseek-v2-lite flash vs plain")
     errors["mla_flash_vs_blockwise"] = assert_close(
-        flash, blockwise_attention(q, k, v, True, 512, 0), tol,
+        flash, blockwise_plain(q, k, v, True, 512, 0), tol,
         "deepseek-v2-lite flash vs blockwise")
     errors["mla_layer_with_flash_vs_apply"] = assert_close(
         dense_apply(p["wo"], flash.reshape(b, s, h * vh)), out, tol,
@@ -1284,18 +1550,25 @@ def attention_entry(fn):
         fa.flash_attention_fwd = saved
 
 
+def blockwise_plain(q, k, v, causal=True, block=512, q_offset=0):
+    """``blockwise_attention``'s plain forward (the online-softmax loops over
+    ``block``-key blocks), which runs where the kernel pair does not: the
+    yardstick the flash kernel is held against, on the card too."""
+    from repro_torch.models.attention import _bw_attention_fwd_impl
+
+    return _bw_attention_fwd_impl(q, k, v, causal, block, q_offset)[0]
+
+
 def blockwise_entry(block: int, drop_causal_at: int | None = None):
-    """``blockwise_attention`` with the flash kernel's signature; with
+    """:func:`blockwise_plain` with the flash kernel's signature; with
     ``drop_causal_at``, that call (0 = the first layer's) drops its causal
     mask: the planted fault."""
-    from repro_torch.models.attention import blockwise_attention
-
     calls = []
 
     def entry(q, k, v, causal=True, q_offset=0):
         calls.append(1)
-        return blockwise_attention(q, k, v, causal and len(calls) - 1 != drop_causal_at,
-                                   block, q_offset)
+        return blockwise_plain(q, k, v, causal and len(calls) - 1 != drop_causal_at,
+                               block, q_offset)
 
     return entry
 
@@ -1826,11 +2099,16 @@ def train_main_model(cfg, dev, counters, failures: list) -> dict:
 
     import torch
 
-    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention, forward, init_params, loss_fn
     from repro_torch.models.layers import chunked_cross_entropy, tree_leaves
     from repro_torch.optim.adamw import init_opt_state
 
     flash = counters["flash_attention_fwd"]
+    # the train step's attention: the kernel pair where the route takes it
+    # (bf16 on the card), else the plain loops, whose forward is blockwise_loss's
+    pair = attention.kernel_pair_takes(dev.type, (torch.bfloat16,) * 3, cfg.head_dim,
+                                       cfg.head_dim)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=MODEL_SEED, device=dev)
     opt = init_opt_state(params)
@@ -1858,6 +2136,8 @@ def train_main_model(cfg, dev, counters, failures: list) -> dict:
 
     step = train_step_of(cfg)
     before = flash.launches
+    pair_before = (fa.flash_attention_fwd_lse.launches, fa.flash_attention_bwd.launches,
+                   attention.PLAIN_CALLS[dev.type])
     losses, times, peaks = {}, {}, {}
     for remat in (True, False):
         fn = step if remat else train_step_of(dataclasses.replace(cfg, remat=False))
@@ -1875,25 +2155,43 @@ def train_main_model(cfg, dev, counters, failures: list) -> dict:
         peaks[key] = torch.cuda.max_memory_allocated()
     res["train_step_launches"] = flash.launches - before
     if res["train_step_launches"]:
-        failures.append(f"{cfg.name}: the train step launched the flash kernel "
+        failures.append(f"{cfg.name}: the train step launched the forward-only flash kernel "
                         f"{res['train_step_launches']} times")
+    # each remat step runs a layer's forward twice, each step without once;
+    # every step runs its backward once
+    steps = 1 + TRAIN_TIMED_STEPS
+    res["pair_launches"] = {
+        "forward": fa.flash_attention_fwd_lse.launches - pair_before[0],
+        "backward": fa.flash_attention_bwd.launches - pair_before[1],
+        "plain_calls": attention.PLAIN_CALLS[dev.type] - pair_before[2]}
+    want = ({"forward": 3 * steps * cfg.n_layers, "backward": 2 * steps * cfg.n_layers,
+             "plain_calls": 0} if pair else
+            {"forward": 0, "backward": 0, "plain_calls": 3 * steps * cfg.n_layers})
+    if res["pair_launches"] != want:
+        failures.append(f"{cfg.name}: the train steps' attention calls {res['pair_launches']}, "
+                        f"expected {want}")
     all_losses = losses["remat"] + losses["no_remat"]
     if not all(np.isfinite(all_losses)):
         failures.append(f"{cfg.name}: a train step's loss is not finite: {all_losses}")
-    # (iv) the step's loss at step 0 is the training forward's function:
-    # blockwise attention's no_grad loss, bit for bit; and the kernel's
-    # prefill within WHOLE_MODEL's relative RMS error on the logits, carried
-    # to the loss by |d CE| <= 2 max |d logit| (in RMS: 2 rel_rms rms(logits))
+    # (iv) the step's loss at step 0 is the training forward's function, bit
+    # for bit: on the kernel pair, the flash kernel's no_grad prefill (the
+    # same launch, with lse written beside it); on the plain loops,
+    # blockwise attention's plain forward under no_grad; and the kernel's
+    # prefill within WHOLE_MODEL's relative RMS error on the logits of the
+    # plain forward's loss, carried to the loss by |d CE| <= 2 max |d logit|
+    # (in RMS: 2 rel_rms rms(logits))
     limit = 2 * WHOLE_MODEL["rel_rms"] * logits_rms
     res["step0_loss"], res["blockwise_loss"], res["prefill_loss"] = (
         losses["remat"][0], blockwise_loss, prefill_loss)
     res["prefill_loss_limit"] = limit
-    if losses["remat"][0] != blockwise_loss:
-        failures.append(f"{cfg.name}: step 0's loss {losses['remat'][0]!r} is not the blockwise "
-                        f"forward's {blockwise_loss!r}")
-    if abs(losses["remat"][0] - prefill_loss) > limit:
-        failures.append(f"{cfg.name}: step 0's loss {losses['remat'][0]} vs the kernel's prefill "
-                        f"{prefill_loss}: more than {limit:.3g} apart")
+    res["train_forward"] = "kernel pair" if pair else "blockwise"
+    train_forward_loss = prefill_loss if pair else blockwise_loss
+    if losses["remat"][0] != train_forward_loss:
+        failures.append(f"{cfg.name}: step 0's loss {losses['remat'][0]!r} is not the "
+                        f"{res['train_forward']} forward's {train_forward_loss!r}")
+    if abs(prefill_loss - blockwise_loss) > limit:
+        failures.append(f"{cfg.name}: the kernel's prefill loss {prefill_loss} vs the blockwise "
+                        f"forward's {blockwise_loss}: more than {limit:.3g} apart")
     flops = model_flops(cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
     for key in ("remat", "no_remat"):
         ms = statistics.median(times[key][1:])
@@ -2155,10 +2453,11 @@ def drive_training(dev, counters) -> dict:
           f"without ({main['no_remat']['max_memory_allocated']} B); model FLOPs "
           f"{main['remat']['model_flops']:.4g} = {main['flops']['formula']}", flush=True)
     print(f"    losses {main['remat']['losses']} / {main['no_remat']['losses']}; step 0 "
-          f"{main['step0_loss']!r} = blockwise {main['blockwise_loss']!r}, kernel prefill "
-          f"{main['prefill_loss']!r} (limit {main['prefill_loss_limit']:.3g}, "
-          f"{main['prefill_launches']} flash launches; {main['train_step_launches']} in the "
-          f"train steps); remat vs none {main['remat_vs_none']}; AdamW vs float64 "
+          f"{main['step0_loss']!r} ({main['train_forward']}), blockwise "
+          f"{main['blockwise_loss']!r}, kernel prefill {main['prefill_loss']!r} (limit "
+          f"{main['prefill_loss_limit']:.3g}, {main['prefill_launches']} flash launches; "
+          f"{main['train_step_launches']} in the train steps, whose attention calls were "
+          f"{main['pair_launches']}); remat vs none {main['remat_vs_none']}; AdamW vs float64 "
           f"{main['adamw_vs_float64']}", flush=True)
     res["directional"] = directional_check(main_cfg, dev)
     print(f"  7a directional derivative (fp32, {res['directional']['layers']} layers): "
@@ -3160,6 +3459,8 @@ def main() -> int:
     attention_rows = check_attention_kernels(dev)
     attention_rows[0]["hgmma"] = sum(flash_build["hgmma"].values())
     attention_rows[0]["nvcc_s"] = per_source.get("flash_attention")
+    pair_rows = check_pair_kernels(dev)
+    pair_rows[1]["nvcc_s"] = per_source.get("flash_attention_bwd")
     phase_done("2")
 
     counters = {fn.__name__: fn for fn in (*ge.KERNELS, *xr.KERNELS, *fa.KERNELS)}
@@ -3229,6 +3530,7 @@ def main() -> int:
           f"{matmul_row['name']} was not launched on the training path")
     flash_row["training_launches"] = counters[flash_row["name"]].launches
     flash_row["train_step_launches"] = training["main"]["train_step_launches"]
+    count_launches(pair_rows, counters, "training")
     print(f"  launches on the training path: {matmul_row['name']} "
           f"{matmul_row['training_launches']} (7b: encode "
           f"{matmul_row['training_encode_launches']}, decode "
@@ -3291,7 +3593,7 @@ def main() -> int:
                       "decode_mesh": decode_mesh, "flash_build": flash_build,
                       "gf_build": gf_build, "copy": copy, "phase_seconds": seconds}))
     print(card)
-    print(json.dumps({"kernels": dataplane_rows + attention_rows + [offset_row]}))
+    print(json.dumps({"kernels": dataplane_rows + attention_rows + pair_rows + [offset_row]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

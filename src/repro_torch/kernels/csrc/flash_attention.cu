@@ -11,6 +11,9 @@
 // does), fp32 accumulation, the scale applied in fp32, and p rounded to v's
 // dtype before P.V (the row sum l taken from the unrounded p), all as the
 // TPU kernel does.  The output has q's dtype and is (B,Sq,H,Dv), contiguous.
+// The bf16 body can also write each row's log-sum-exp, lse = m + log(l)
+// in fp32 (m the row's max scaled score), to an fp32 (B,H,lse_stride)
+// buffer: the residual from which flash_attention_bwd.cu recomputes P.
 //
 // Bound on this card: operations.  A causal pass does B*H*S*(S+1)/2 * 2*(D+Dv)
 // flops over (B*S*(H*D + Hkv*(D+Dv)) + B*S*H*Dv) * sizeof(T) bytes, between
@@ -107,20 +110,6 @@ template <int W> struct Tile {
   static_assert(W % 16 == 0 && kNarrow <= 2, "widths are 64a + 16b with b <= 2");
 };
 
-// Where the head, row (sequence) and batch dims sit (1..3) in an operand's
-// 4-D tensor map; the innermost dim 0 is the head dim.
-struct Perm {
-  int h, s, b;
-};
-
-struct Maps {              // one operand: its 64- and 16-column boxes
-  CUtensorMap wide, narrow;
-};
-
-__device__ __forceinline__ int pick(const Perm& p, int dim, int head, int row, int batch) {
-  return p.h == dim ? head : p.s == dim ? row : batch;
-}
-
 // TMA the 128 rows row0.. of one head into a Tile<W> at `dst`
 template <int W>
 __device__ __forceinline__ void load_tile(uint32_t dst, const Maps& m, const Perm& p,
@@ -152,8 +141,9 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
              const __grid_constant__ Maps mv, Perm pq, Perm pk, Perm pv,
-             __nv_bfloat16* __restrict__ o, int Sq, int Skv, int q_offset, int H, int rep,
-             int nq, int bh_count, float scale, int causal) {
+             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int64_t lse_stride,
+             int Sq, int Skv, int q_offset, int H, int rep, int nq, int bh_count, float scale,
+             int causal) {
   using TQ = Tile<D>;
   using TV = Tile<DV>;
   extern __shared__ uint8_t smem_raw[];
@@ -334,12 +324,14 @@ flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
     fence_regs<32>(p);
     mbar_arrive(empty + 8 * (last % kStages));
 
-    // out = acc / max(l, 1e-30) in fp32, rounded to bf16; rows at or past Sq are not stored
+    // out = acc / max(l, 1e-30) in fp32, rounded to bf16, and lse = m + log(max(l, 1e-30))
+    // by one lane of the quad; rows at or past Sq are not stored
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + 8 * i;
       if (row >= Sq) continue;
       const float ll = fmaxf(l[i], 1e-30f);
+      if (lse != nullptr && tid % 4 == 0) lse[int64_t(bh) * lse_stride + row] = m[i] + logf(ll);
       __nv_bfloat16* orow = o + ((int64_t(b) * Sq + row) * H + h) * DV + col0;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j)
@@ -347,72 +339,6 @@ flash_fwd_tc(const __grid_constant__ Maps mq, const __grid_constant__ Maps mk,
             __floats2bfloat162_rn(acc[4 * j + 2 * i] / ll, acc[4 * j + 2 * i + 1] / ll);
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no libcuda link)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
-// An operand (B, S, heads, width) with element strides sb, ss, sh (unit
-// stride in the last dim), as the 4-D maps' (width, then the three outer
-// dims by ascending stride; a dim of extent 1 goes last, past all others).
-struct Operand {
-  const void* ptr;
-  int64_t width, heads, S, B, sb, ss, sh;
-};
-
-bool encode(const Operand& x, Maps* maps, Perm* perm) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  struct Dim { int64_t extent, stride; int which; };   // which: 0 head, 1 row, 2 batch
-  Dim dims[3] = {{x.heads, x.sh, 0}, {x.S, x.ss, 1}, {x.B, x.sb, 2}};
-  int64_t span = x.width;                               // elements past which nothing lies
-  for (const Dim& d : dims)
-    if (d.extent > 1) span = std::max(span, d.extent * d.stride);
-  for (Dim& d : dims)
-    if (d.extent == 1) d.stride = span;
-  std::stable_sort(dims, dims + 3, [](const Dim& a, const Dim& b) {
-    return (a.extent == 1) < (b.extent == 1) || ((a.extent == 1) == (b.extent == 1) &&
-                                                 a.stride < b.stride);
-  });
-  cuuint64_t extent[4] = {cuuint64_t(x.width), 0, 0, 0};
-  cuuint64_t stride[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  int* where[3] = {&perm->h, &perm->s, &perm->b};
-  for (int i = 0; i < 3; ++i) {
-    extent[i + 1] = cuuint64_t(dims[i].extent);
-    stride[i] = cuuint64_t(dims[i].stride) * sizeof(__nv_bfloat16);
-    box[i + 1] = dims[i].which == 1 ? kBK : 1;
-    *where[dims[i].which] = i + 1;
-  }
-  void* ptr = const_cast<void*>(x.ptr);
-  CUresult rc = fn(&maps->wide, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, extent, stride, box,
-                   unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (rc != CUDA_SUCCESS) return false;
-  box[0] = 16;
-  rc = fn(&maps->narrow, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, extent, stride, box, unit,
-          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS;
 }
 
 // dynamic shared memory of a block: alignment slack, Q, the K/V ring, 7 mbarriers
@@ -426,17 +352,18 @@ struct Shape {
 };
 
 template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Shape& sh,
-                   const int64_t* st, bool causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int64_t lse_stride, const Shape& sh, const int64_t* st, bool causal,
+                   cudaStream_t stream) {
   const int64_t B = sh.B, H = sh.H, Hkv = sh.Hkv;
   const int64_t nq = (sh.Sq + kBQ - 1) / kBQ;
   const int64_t blocks = B * H * nq;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   Maps mq, mk, mv;
   Perm pq, pk, pv;
-  if (!encode({q, D, H, sh.Sq, B, st[0], st[1], st[2]}, &mq, &pq) ||
-      !encode({k, D, Hkv, sh.Skv, B, st[3], st[4], st[5]}, &mk, &pk) ||
-      !encode({v, DV, Hkv, sh.Skv, B, st[6], st[7], st[8]}, &mv, &pv))
+  if (!encode({q, D, H, sh.Sq, B, st[0], st[1], st[2]}, kBK, &mq, &pq) ||
+      !encode({k, D, Hkv, sh.Skv, B, st[3], st[4], st[5]}, kBK, &mk, &pk) ||
+      !encode({v, DV, Hkv, sh.Skv, B, st[6], st[7], st[8]}, kBK, &mv, &pv))
     return cudaErrorInvalidValue;      // no driver entry point, or a map TMA refuses
   const size_t smem = smem_bytes<D, DV>();
   auto kernel = flash_fwd_tc<D, DV>;
@@ -445,32 +372,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const S
   if (err != cudaSuccess) return err;
   const float scale = float(1.0 / std::sqrt(double(D)));
   kernel<<<unsigned(blocks), kThreads, smem, stream>>>(
-      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), int(sh.Sq), int(sh.Skv),
-      int(sh.q_offset), int(H), int(H / Hkv), int(nq), int(B * H), scale, causal ? 1 : 0);
+      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), lse, lse_stride, int(sh.Sq),
+      int(sh.Skv), int(sh.q_offset), int(H), int(H / Hkv), int(nq), int(B * H), scale,
+      causal ? 1 : 0);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, const Shape& sh,
-                        int64_t DV, const int64_t* st, bool causal, cudaStream_t stream) {
+cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int64_t lse_stride, const Shape& sh, int64_t DV, const int64_t* st,
+                        bool causal, cudaStream_t stream) {
   switch (DV) {
-    case 64: return launch<D, 64>(q, k, v, o, sh, st, causal, stream);
-    case 80: return launch<D, 80>(q, k, v, o, sh, st, causal, stream);
-    case 128: return launch<D, 128>(q, k, v, o, sh, st, causal, stream);
+    case 64: return launch<D, 64>(q, k, v, o, lse, lse_stride, sh, st, causal, stream);
+    case 80: return launch<D, 80>(q, k, v, o, lse, lse_stride, sh, st, causal, stream);
+    case 128: return launch<D, 128>(q, k, v, o, lse, lse_stride, sh, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const Shape& sh,
-                     int64_t D, int64_t DV, const int64_t* st, bool causal, cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+                     int64_t lse_stride, const Shape& sh, int64_t D, int64_t DV,
+                     const int64_t* st, bool causal, cudaStream_t stream) {
   switch (D) {
-    case 64: return dispatch_dv<64>(q, k, v, o, sh, DV, st, causal, stream);
-    case 80: return dispatch_dv<80>(q, k, v, o, sh, DV, st, causal, stream);
-    case 128: return dispatch_dv<128>(q, k, v, o, sh, DV, st, causal, stream);
+    case 64: return dispatch_dv<64>(q, k, v, o, lse, lse_stride, sh, DV, st, causal, stream);
+    case 80: return dispatch_dv<80>(q, k, v, o, lse, lse_stride, sh, DV, st, causal, stream);
+    case 128: return dispatch_dv<128>(q, k, v, o, lse, lse_stride, sh, DV, st, causal, stream);
     case 160:   // zamba2's shared block: (160, 160) only
       if (DV != 160) return cudaErrorInvalidValue;
-      return launch<160, 160>(q, k, v, o, sh, st, causal, stream);
-    case 192: return dispatch_dv<192>(q, k, v, o, sh, DV, st, causal, stream);
+      return launch<160, 160>(q, k, v, o, lse, lse_stride, sh, st, causal, stream);
+    case 192: return dispatch_dv<192>(q, k, v, o, lse, lse_stride, sh, DV, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -694,23 +624,28 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const
 // {q,k,v}_s{b,s,h} and unit stride in the last dim -> o (B,Sq,H,Dv),
 // contiguous; query row i at position q_offset + i.  dtype: 0 = fp32 (the
 // SIMT body), 1 = bf16 (the tensor-core body; base addresses and strides
-// 16-byte aligned).  The caller checks shapes, H % Hkv == 0, (D, Dv) in
+// 16-byte aligned).  With `lse` not null (bf16 only), row i of head h of
+// batch b writes its log-sum-exp to lse[(b * H + h) * lse_stride + i],
+// lse_stride >= Sq.  The caller checks shapes, H % Hkv == 0, (D, Dv) in
 // {64, 80, 128, 192} x {64, 80, 128} or (160, 160), B, Sq, Skv >= 1 and
 // q_offset >= 0.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int64_t B, int64_t Sq, int64_t Skv,
-                                   int64_t q_offset, int64_t H, int64_t Hkv, int64_t D,
-                                   int64_t DV, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                                   int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                                   int64_t v_ss, int64_t v_sh, int causal, void* stream) {
+                                   float* lse, int64_t lse_stride, int dtype, int64_t B,
+                                   int64_t Sq, int64_t Skv, int64_t q_offset, int64_t H,
+                                   int64_t Hkv, int64_t D, int64_t DV, int64_t q_sb,
+                                   int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                                   int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                                   int causal, void* stream) {
   if (D % 16 != 0 || D < 16 || D > 192 || Sq > 0x7fffffff || Skv > 0x7fffffff ||
-      q_offset < 0 || Sq + q_offset > 0x7fffffff || H % Hkv != 0)
+      q_offset < 0 || Sq + q_offset > 0x7fffffff || H % Hkv != 0 ||
+      (lse != nullptr && (dtype != 1 || lse_stride < Sq)))
     return int(cudaErrorInvalidValue);
   const int64_t strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   const tc::Shape sh{B, Sq, Skv, H, Hkv, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(simt::dispatch(q, k, v, o, sh, D, DV, strides, causal != 0, st));
-  if (dtype == 1) return int(tc::dispatch(q, k, v, o, sh, D, DV, strides, causal != 0, st));
+  if (dtype == 1)
+    return int(tc::dispatch(q, k, v, o, lse, lse_stride, sh, D, DV, strides, causal != 0, st));
   return int(cudaErrorInvalidValue);
 }
 

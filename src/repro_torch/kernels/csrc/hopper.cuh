@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
 // loads, warpgroup register reallocation, and wgmma with its shared-memory
-// descriptors.  Only flash_attention.cu uses them.
+// descriptors; on the host, the 4-D tensor maps through which TMA reads a
+// (B, S, heads, width) bf16 operand.  flash_attention.cu and
+// flash_attention_bwd.cu use them.
 //
 // wgmma fragments (PTX ISA, "warpgroup-level matrix fragments"): thread t
 // of a warpgroup (warp w = t / 32, lane = t % 32) holds, of an m64nN fp32
@@ -11,8 +13,10 @@
 // fragment of k slice kk: a[r] = pack(d[8kk + 2r], d[8kk + 2r + 1]).
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda.h>
+#include <cuda_runtime.h>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -190,4 +194,107 @@ __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, smem) . B (64 x 16, smem)^T, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// -- tensor maps (host) ---------------------------------------------------------------
+
+// Where the head, row (sequence) and batch dims sit (1..3) in an operand's
+// 4-D tensor map; the innermost dim 0 is the head dim.
+struct Perm {
+  int h, s, b;
+};
+
+struct Maps {              // one operand: its 64- and 16-column boxes
+  CUtensorMap wide, narrow;
+};
+
+__device__ __forceinline__ int pick(const Perm& p, int dim, int head, int row, int batch) {
+  return p.h == dim ? head : p.s == dim ? row : batch;
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no libcuda link)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 operand (B, S, heads, width) with element strides sb, ss, sh (unit
+// stride in the last dim), as the 4-D maps' (width, then the three outer
+// dims by ascending stride; a dim of extent 1 goes last, past all others).
+struct Operand {
+  const void* ptr;
+  int64_t width, heads, S, B, sb, ss, sh;
+};
+
+// The operand's maps with boxes of `rows` rows of one head: 64 columns with
+// the 128-byte swizzle (wide), 16 with the 32-byte swizzle (narrow).  Rows
+// at or past S load as zeros.
+inline bool encode(const Operand& x, int rows, Maps* maps, Perm* perm) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  struct Dim { int64_t extent, stride; int which; };   // which: 0 head, 1 row, 2 batch
+  Dim dims[3] = {{x.heads, x.sh, 0}, {x.S, x.ss, 1}, {x.B, x.sb, 2}};
+  int64_t span = x.width;                               // elements past which nothing lies
+  for (const Dim& d : dims)
+    if (d.extent > 1) span = std::max(span, d.extent * d.stride);
+  for (Dim& d : dims)
+    if (d.extent == 1) d.stride = span;
+  std::stable_sort(dims, dims + 3, [](const Dim& a, const Dim& b) {
+    return (a.extent == 1) < (b.extent == 1) || ((a.extent == 1) == (b.extent == 1) &&
+                                                 a.stride < b.stride);
+  });
+  cuuint64_t extent[4] = {cuuint64_t(x.width), 0, 0, 0};
+  cuuint64_t stride[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  int* where[3] = {&perm->h, &perm->s, &perm->b};
+  for (int i = 0; i < 3; ++i) {
+    extent[i + 1] = cuuint64_t(dims[i].extent);
+    stride[i] = cuuint64_t(dims[i].stride) * 2;        // bf16
+    box[i + 1] = dims[i].which == 1 ? cuuint32_t(rows) : 1;
+    *where[dims[i].which] = i + 1;
+  }
+  void* ptr = const_cast<void*>(x.ptr);
+  CUresult rc = fn(&maps->wide, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, extent, stride, box,
+                   unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) return false;
+  box[0] = 16;
+  rc = fn(&maps->narrow, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, extent, stride, box, unit,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS;
 }

@@ -1,13 +1,18 @@
-"""Flash attention forward: the online-softmax attention of the training path.
+"""Flash attention: the online-softmax attention forward, and the kernel
+pair that trains on it.
 
-Wrapper of the hand-written CUDA kernel in ``csrc/flash_attention.cu``,
-with its plain PyTorch version beside it:
+Wrappers of the hand-written CUDA kernels in ``csrc/flash_attention.cu``
+and ``csrc/flash_attention_bwd.cu``, each with its plain PyTorch version
+beside it:
 
-  ======================  =====================================================
-  wrapper                 replaces (Pallas TPU kernel)
-  ======================  =====================================================
-  flash_attention_fwd     src/repro/kernels/flash_attention.py:flash_attention_fwd
-  ======================  =====================================================
+  =======================  ====================================================
+  wrapper                  replaces (Pallas TPU kernel)
+  =======================  ====================================================
+  flash_attention_fwd      src/repro/kernels/flash_attention.py:flash_attention_fwd
+  flash_attention_fwd_lse  the same kernel, also writing each row's log-sum-exp
+  flash_attention_bwd      none: the TPU kernel is forward only, and the
+                           reference trains on blockwise attention's custom_vjp
+  =======================  ====================================================
 
 q (B,Sq,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv), bf16 or fp32 -> (B,Sq,H,Dv)
 in q's dtype: grouped-query heads (kv head = h // rep, never repeated in
@@ -30,10 +35,21 @@ plain version walks the tiles of the body that the dtype selects
 over: the kernel picks its own tiles.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
-it launches the kernel on the current stream or raises.  Either way it is
-forward only, as the TPU kernel is, and raises when an operand needs a
-gradient.  ``flash_attention_fwd.launches`` counts its launches, and
-``flash_attention_fwd.offset_launches`` those of them with ``q_offset > 0``.
+it launches the kernel on the current stream or raises.  Either way
+``flash_attention_fwd`` is forward only, as the TPU kernel is, and raises
+when an operand needs a gradient.  ``flash_attention_fwd.launches`` counts
+its launches, and ``flash_attention_fwd.offset_launches`` those of them with
+``q_offset > 0``.
+
+The training pair (``models.attention._BlockwiseAttention`` on bf16 CUDA
+tensors of head dims :data:`BWD_HEAD_DIMS`): :func:`flash_attention_fwd_lse`
+launches the bf16 body and also returns lse (B, H, :func:`lse_rows`) in
+fp32, the residual from which :func:`flash_attention_bwd` recomputes P; the
+backward returns (dq, dk, dv) in bf16 with P and dS held at fp32 precision
+(three-term bf16 splits on the tensor cores, see the source's header) and
+no atomics, so a rerun gives the same bits.  Its plain version is the
+plain training backward (``models.attention._attention_bwd_plain``) given
+the same residuals.  Each keeps its own ``launches``.
 """
 
 from __future__ import annotations
@@ -54,13 +70,19 @@ HEAD_DIMS = tuple((d, dv) for d in (64, 80, 128, 192) for dv in (64, 80, 128)) +
 KV_TILE = 128
 #: keys per KV tile of the fp32 (SIMT) body, simt::kBK in the source
 FP32_KV_TILE = 64
+#: the (D, Dv) head-dim pairs the backward kernel takes (bf16 only)
+BWD_HEAD_DIMS = ((128, 128),)
+#: rows of the lse and delta buffers are padded to a multiple of this
+#: (kLsePad in flash_attention_bwd.cu)
+LSE_PAD = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _INT, *[_I64] * 17, _INT, _PTR],
+    "flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, *[_I64] * 17, _INT, _PTR],
     "flash_attention_tc_smem_bytes": [_I64, _I64],
 }
+_BWD_SIGNATURES = {"flash_attention_bwd": [*[_PTR] * 12, *[_I64] * 9, _PTR, _INT, _PTR]}
 
 
 def kv_tile(dtype: torch.dtype) -> int:
@@ -88,6 +110,16 @@ def needs_copy(t: torch.Tensor) -> bool:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", _SIGNATURES)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+
+
+def lse_rows(sq: int) -> int:
+    """Rows of the (B, H, rows) lse buffer for ``sq`` query rows: ``sq``
+    rounded up to a multiple of :data:`LSE_PAD`."""
+    return -(-sq // LSE_PAD) * LSE_PAD
 
 
 def tc_smem_bytes(d: int, dv: int) -> int:
@@ -149,6 +181,32 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
 
 
+def _launch_fwd(q, k, v, causal: bool, q_offset: int, lse: torch.Tensor | None) -> torch.Tensor:
+    """The forward kernel on the current stream; writes ``lse`` when given."""
+    b, s, h, _ = q.shape
+    out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
+    if out.numel():
+        q, k, v = (t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
+                   for t in (q, k, v))
+        lib = _lib()
+        with _build.on_device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), 0 if lse is None else lse.shape[-1],
+                _DTYPES[q.dtype], b, s, k.shape[1], q_offset, h, k.shape[2], q.shape[3],
+                v.shape[3], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+                stream)
+        _build.check(lib, rc, "flash_attention_fwd")
+    return out
+
+
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; call it under torch.no_grad() or use "
+                           "models.attention.blockwise_attention")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q (B,Sq,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv) -> (B,Sq,H,Dv) in q's
@@ -163,24 +221,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention_fwd has no backward; call it under "
-                           "torch.no_grad() or use models.attention.blockwise_attention")
+    _refuse_autograd("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, q_offset)
-    b, s, h, _ = q.shape
-    out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
+    out = _launch_fwd(q, k, v, causal, q_offset, None)
     if out.numel():
-        q, k, v = (t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
-                   for t in (q, k, v))
-        lib = _lib()
-        with _build.on_device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                b, s, k.shape[1], q_offset, h, k.shape[2], q.shape[3], v.shape[3],
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), stream)
-        _build.check(lib, rc, "flash_attention_fwd")
         flash_attention_fwd.launches += 1
         flash_attention_fwd.offset_launches += q_offset > 0
     return out
@@ -189,5 +234,120 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 flash_attention_fwd.offset_launches = 0
 
+
+def _to_kernel_lse(lse: torch.Tensor) -> torch.Tensor:
+    """lse (B, Sq, H) -> the kernels' (B, H, lse_rows(Sq)), rows past Sq 0."""
+    b, s, h = lse.shape
+    out = torch.zeros((b, h, lse_rows(s)), dtype=torch.float32, device=lse.device)
+    out[..., :s] = lse.permute(0, 2, 1)
+    return out
+
+
+def _check_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> None:
+    """Raise on operands the kernel pair does not take."""
+    _check(q, k, v, q_offset)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the kernel pair takes bfloat16, got {q.dtype}")
+    if (q.shape[3], v.shape[3]) not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dims (D, Dv) = ({q.shape[3]}, {v.shape[3]}) not in "
+                         f"{BWD_HEAD_DIMS}, the backward kernel's")
+
+
+def flash_attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  causal: bool = True, q_offset: int = 0):
+    """:func:`flash_attention_fwd_plain`'s bf16 route, with the log-sum-exp of
+    each row in the kernels' (B, H, lse_rows(Sq)) layout."""
+    from repro_torch.models.attention import _flash_fwd_scan, _group_q
+
+    b, s, h, d = q.shape
+    out, lse = _flash_fwd_scan(_group_q(q, k.shape[2]), k, v, causal, KV_TILE, q_offset,
+                               1.0 / math.sqrt(d))
+    return out.reshape(b, s, h, v.shape[3]).to(q.dtype), _to_kernel_lse(lse.reshape(b, s, h))
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = True, q_offset: int = 0):
+    """The forward of the training pair: (out, lse), out as
+    :func:`flash_attention_fwd` gives it (the same kernel, so the same bits)
+    and lse (B, H, lse_rows(Sq)) fp32, row i of head h at ``lse[b, h, i]``
+    (rows past Sq 0).  bf16 operands of the head dims
+    :data:`BWD_HEAD_DIMS`; forward only itself (``_BlockwiseAttention``
+    calls it with autograd off and pairs it with :func:`flash_attention_bwd`).
+    """
+    q_offset = int(q_offset)
+    _check_pair(q, k, v, q_offset)
+    _refuse_autograd("flash_attention_fwd_lse", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_lse_plain(q, k, v, causal, q_offset)
+    b, s, h, _ = q.shape
+    lse = torch.empty((b, h, lse_rows(s)), dtype=torch.float32, device=q.device)
+    lse[..., s:].zero_()            # the padding rows, as the plain version leaves them
+    out = _launch_fwd(q, k, v, causal, q_offset, lse)
+    if out.numel():
+        flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_lse.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal: bool = True, q_offset: int = 0):
+    """The plain training backward (``models.attention._attention_bwd_plain``)
+    from the kernels' lse layout: (dq, dk, dv) in the operands' dtype."""
+    from repro_torch.models.attention import _attention_bwd_plain
+
+    b, s, h, _ = q.shape
+    hkv = k.shape[2]
+    lse = lse[..., :s].permute(0, 2, 1).reshape(b, s, hkv, h // hkv)
+    return _attention_bwd_plain(q, k, v, out, dout, lse, causal, KV_TILE, q_offset)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor, causal: bool = True,
+                        q_offset: int = 0):
+    """Gradients (dq, dk, dv), bf16, of the attention whose forward
+    :func:`flash_attention_fwd_lse` gave ``out`` and ``lse`` on the same q,
+    k, v, ``causal`` and ``q_offset``, for the output's gradient ``dout``
+    (B, Sq, H, Dv).  Deterministic: the same inputs give the same bits."""
+    q_offset = int(q_offset)
+    _check_pair(q, k, v, q_offset)
+    b, s, h, d = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (b, s, h, dv) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device}: expected "
+                             f"{(b, s, h, dv)} {q.dtype} on {q.device}")
+    if lse.shape != (b, h, lse_rows(s)) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected "
+                         f"{(b, h, lse_rows(s))} float32 on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, q_offset)
+    grad_q = torch.empty_like(q, memory_format=torch.contiguous_format)
+    grad_k = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
+    grad_v = torch.empty((b, skv, hkv, dv), dtype=q.dtype, device=q.device)
+    if not (grad_q.numel() and grad_k.numel()):
+        return grad_q.zero_(), grad_k.zero_(), grad_v.zero_()
+    q, k, v, out, dout = (t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
+                          for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dk_part = torch.empty((b, skv, h, d), dtype=torch.float32, device=q.device)
+    dv_part = torch.empty((b, skv, h, dv), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 15)(*(st for t in (q, k, v, out, dout) for st in t.stride()[:3]))
+    lib = _bwd_lib()
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), grad_q.data_ptr(), grad_k.data_ptr(), grad_v.data_ptr(),
+            dk_part.data_ptr(), dv_part.data_ptr(), delta.data_ptr(), b, s, skv, q_offset, h,
+            hkv, d, dv, lse.shape[-1], strides, int(causal), stream)
+    _build.check(lib, rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return grad_q, grad_k, grad_v
+
+
+flash_attention_bwd.launches = 0
+
 #: every kernel wrapper of this module, for launch accounting
-KERNELS = (flash_attention_fwd,)
+KERNELS = (flash_attention_fwd, flash_attention_fwd_lse, flash_attention_bwd)

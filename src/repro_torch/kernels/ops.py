@@ -383,9 +383,11 @@ def flash_attention(
     hand-written kernel (the counterpart of the reference's "Pallas on TPU")
     when the operands are on a CUDA device and none needs a gradient, or
     with ``backend="kernel"`` (on CPU tensors, its plain version); else the
-    differentiable ``blockwise_attention(q, k, v, causal, block, q_offset)``.  The
-    kernel is forward only, as the TPU kernel is: asked for by name, it
-    raises when q, k or v needs a gradient.  It ignores ``block``: it walks
+    differentiable ``blockwise_attention(q, k, v, causal, block, q_offset)``
+    (which on the card trains on the flash forward and its backward kernel
+    where ``models.attention.kernel_pair_takes``).  The flash kernel itself
+    is forward only, as the TPU kernel is: asked for by name, it raises
+    when q, k or v needs a gradient.  It ignores ``block``: it walks
     its own KV tiles.  A kernel that fails to build or launch raises."""
     if backend not in (None, "kernel"):
         raise ValueError(f"unknown backend {backend!r}")

@@ -4,7 +4,12 @@ attention, and KV-cache decode (PyTorch port of ``repro.models.attention``).
 Training attention is *blockwise*: an online-softmax loop over KV blocks,
 so the (S, S) score matrix is never materialized, and a backward pass
 (:class:`_BlockwiseAttention`) that recomputes block scores instead of
-storing per-block residuals (O(S) memory).
+storing per-block residuals (O(S) memory).  On the card, a call on bf16
+q, k, v of head dims the backward kernel takes runs on the hand-written
+kernel pair (``kernels.flash_attention``: the flash
+forward writing each row's log-sum-exp, and the fused backward), both
+directions; every other call runs the plain loops here
+(:func:`kernel_pair_takes` decides, once, before the call).
 
 The layers' self-attention goes through
 :func:`repro_torch.kernels.ops.flash_attention`, the one dispatch point:
@@ -38,14 +43,21 @@ the mask, and the output is gathered over model.  No cache is gathered.
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense_apply, dense_init
 from repro_torch.parallel import spmd
 
 NEG_INF = -1e30
+
+#: ``_BlockwiseAttention`` calls (forwards) that took the plain loops, by
+#: device type: on the card, the share of training attention that did not
+#: reach the kernel pair
+PLAIN_CALLS: Counter = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -167,51 +179,77 @@ def _row_dot(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (out * dout).sum(dim=-1)
 
 
+def _attention_bwd_plain(q, k, v, out, dout, lse, causal, block, q_offset):
+    """The backward of blockwise attention in plain PyTorch, from (q, k, v,
+    out, lse (B, Sq, Hkv, R)): block scores recomputed in fp32 over KV blocks
+    of ``block`` keys, P and dS in fp32.  Returns (dq, dk, dv) in the
+    operands' dtypes.  The plain version of ``kernels/csrc/flash_attention_bwd.cu``."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    block = min(block, k.shape[1])
+    scale = 1.0 / math.sqrt(d)
+    qg = _group_q(q, hkv).float() * scale
+    og = _group_q(out, hkv).float()
+    dog = _group_q(dout, hkv).float()
+    delta = _row_dot(og, dog)                       # D_i = rowsum(dout * out)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for start in range(0, k.shape[1], block):
+        kc32 = k[:, start:start + block].float()
+        vc32 = v[:, start:start + block].float()
+        scores = torch.einsum("bqgrd,bkgd->bqgrk", qg, kc32)
+        p = torch.exp(scores - lse[..., None])
+        if causal:
+            mask = _causal_mask(start, kc32.shape[1], sq, q_offset, q.device)
+            p = p.masked_fill(~mask[None, :, None, None, :], 0.0)
+        dvs.append(torch.einsum("bqgrk,bqgrd->bkgd", p, dog))
+        dp = torch.einsum("bqgrd,bkgd->bqgrk", dog, vc32)
+        ds = p * (dp - delta[..., None])            # (B,Sq,Hkv,R,block)
+        # scores = (q*scale)@k  =>  dq = scale * ds@k;  dk = ds^T @ (q*scale)
+        dq += torch.einsum("bqgrk,bkgd->bqgrd", ds, kc32) * scale
+        dks.append(torch.einsum("bqgrk,bqgrd->bkgd", ds, qg))
+    return (
+        dq.reshape(b, sq, h, d).to(q.dtype),
+        torch.cat(dks, dim=1).to(k.dtype),
+        torch.cat(dvs, dim=1).to(v.dtype),
+    )
+
+
+def kernel_pair_takes(device_type: str, dtypes, d: int, dv: int) -> bool:
+    """The route of a ``_BlockwiseAttention`` call, from what its operands
+    show: the kernel pair for CUDA tensors, q, k and v all bf16, of head
+    dims the backward kernel takes (``fa.BWD_HEAD_DIMS``); the plain loops
+    for everything else (the CPU, fp32, other widths)."""
+    return (device_type == "cuda" and all(t == torch.bfloat16 for t in dtypes)
+            and (d, dv) in fa.BWD_HEAD_DIMS)
+
+
 class _BlockwiseAttention(torch.autograd.Function):
     """Blockwise attention with a backward that recomputes block scores from
-    (q, k, v, out, lse), storing no per-block residuals."""
+    (q, k, v, out, lse), storing no per-block residuals.  ``kernels`` (the
+    route, decided by the caller) runs both directions on the kernel pair;
+    otherwise both run the plain loops."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block, q_offset):
-        out, lse = _bw_attention_fwd_impl(q, k, v, causal, block, q_offset)
+    def forward(ctx, q, k, v, causal, block, q_offset, kernels):
+        if kernels:
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, causal, q_offset)
+        else:
+            PLAIN_CALLS[q.device.type] += 1
+            out, lse = _bw_attention_fwd_impl(q, k, v, causal, block, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.block, ctx.q_offset = causal, block, q_offset
+        ctx.causal, ctx.block, ctx.q_offset, ctx.kernels = causal, block, q_offset, kernels
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, q_offset = ctx.causal, ctx.q_offset
-        b, sq, h, d = q.shape
-        hkv = k.shape[2]
-        block = min(ctx.block, k.shape[1])
-        scale = 1.0 / math.sqrt(d)
-        qg = _group_q(q, hkv).float() * scale
-        og = _group_q(out, hkv).float()
-        dog = _group_q(dout, hkv).float()
-        delta = _row_dot(og, dog)                       # D_i = rowsum(dout * out)
-        dq = torch.zeros_like(qg)
-        dks, dvs = [], []
-        for start in range(0, k.shape[1], block):
-            kc32 = k[:, start:start + block].float()
-            vc32 = v[:, start:start + block].float()
-            scores = torch.einsum("bqgrd,bkgd->bqgrk", qg, kc32)
-            p = torch.exp(scores - lse[..., None])
-            if causal:
-                mask = _causal_mask(start, kc32.shape[1], sq, q_offset, q.device)
-                p = p.masked_fill(~mask[None, :, None, None, :], 0.0)
-            dvs.append(torch.einsum("bqgrk,bqgrd->bkgd", p, dog))
-            dp = torch.einsum("bqgrd,bkgd->bqgrk", dog, vc32)
-            ds = p * (dp - delta[..., None])            # (B,Sq,Hkv,R,block)
-            # scores = (q*scale)@k  =>  dq = scale * ds@k;  dk = ds^T @ (q*scale)
-            dq += torch.einsum("bqgrk,bkgd->bqgrd", ds, kc32) * scale
-            dks.append(torch.einsum("bqgrk,bqgrd->bkgd", ds, qg))
-        return (
-            dq.reshape(b, sq, h, d).to(q.dtype),
-            torch.cat(dks, dim=1).to(k.dtype),
-            torch.cat(dvs, dim=1).to(v.dtype),
-            None, None, None,
-        )
+        if ctx.kernels:
+            grads = fa.flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal, ctx.q_offset)
+        else:
+            grads = _attention_bwd_plain(q, k, v, out, dout, lse, ctx.causal, ctx.block,
+                                         ctx.q_offset)
+        return (*grads, None, None, None, None)
 
 
 def blockwise_attention(
@@ -224,8 +262,11 @@ def blockwise_attention(
 ) -> torch.Tensor:
     """Flash attention in plain PyTorch: online softmax over KV blocks,
     grouped GQA heads (no KV head repeat), and a backward that recomputes
-    block scores instead of storing per-block residuals (O(S) memory)."""
-    return _BlockwiseAttention.apply(q, k, v, causal, block, q_offset)
+    block scores instead of storing per-block residuals (O(S) memory); on
+    the card, trained on the kernel pair where :func:`kernel_pair_takes`."""
+    kernels = kernel_pair_takes(q.device.type, (q.dtype, k.dtype, v.dtype), q.shape[-1],
+                                v.shape[-1])
+    return _BlockwiseAttention.apply(q, k, v, causal, block, q_offset, kernels)
 
 
 def _blockwise_attention_autodiff(q, k, v, causal=True, block=512, q_offset=0):

@@ -579,6 +579,136 @@ def test_flash_wrapper_is_forward_only(needs_grad):
     assert torch.equal(got, want)
 
 
+# -- the training kernel pair: its route, and its plain versions on the CPU ----------------
+
+
+@pytest.mark.parametrize("device,dtypes,d,dv,takes", [
+    ("cuda", ("bfloat16",) * 3, 128, 128, True),      # yi's train_4k attention
+    ("cpu", ("bfloat16",) * 3, 128, 128, False),
+    ("meta", ("bfloat16",) * 3, 128, 128, False),
+    ("cuda", ("float32",) * 3, 128, 128, False),
+    ("cuda", ("bfloat16", "float32", "bfloat16"), 128, 128, False),
+    ("cuda", ("bfloat16",) * 3, 192, 128, False),     # MLA
+    ("cuda", ("bfloat16",) * 3, 160, 160, False),     # zamba2's shared block
+    ("cuda", ("bfloat16",) * 3, 64, 64, False),       # whisper
+    ("cuda", ("float16",) * 3, 128, 128, False),
+])
+def test_kernel_pair_route(device, dtypes, d, dv, takes):
+    """Which calls of blockwise attention run on the kernel pair: on the
+    card, bf16 q, k and v, head dims the backward takes; with a gradient
+    or without, both directions of a call on one route."""
+    dtypes = tuple(getattr(torch, name) for name in dtypes)
+    assert pt_attn.kernel_pair_takes(device, dtypes, d, dv) is takes
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_plain_path_counter_counts_cpu_calls(grad):
+    """Every forward on the plain loops counts once under its device type,
+    with a gradient or without; the backward adds nothing."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(grad) for x in _qkv(36, 1, 40, 4, 2, 16))
+    before = dict(pt_attn.PLAIN_CALLS)
+    out = pt_attn.blockwise_attention(q, k, v, True, 16, 0)
+    if grad:
+        out.sum().backward()
+    assert pt_attn.PLAIN_CALLS["cpu"] == before.get("cpu", 0) + 1
+    assert pt_attn.PLAIN_CALLS["cuda"] == before.get("cuda", 0)
+    torch.testing.assert_close(out.detach(), pt_attn._blockwise_attention_autodiff(
+        *(t.detach() for t in (q, k, v)), True, 16, 0), rtol=0, atol=0)
+
+
+def _attention_float64(q, k, v, causal, q_offset):
+    """(out, lse (B, Sq, H)) of the exact function in float64, GQA heads
+    repeated, query row i at position q_offset + i."""
+    rep = q.shape[2] // k.shape[2]
+    kr, vr = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) / q.shape[-1] ** 0.5
+    if causal:
+        rows = q_offset + torch.arange(q.shape[1])[:, None]
+        s = s.masked_fill(torch.arange(k.shape[1])[None, :] > rows, float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vr)
+    return out, s.logsumexp(-1).permute(0, 2, 1)
+
+
+@pytest.mark.parametrize("sq,skv,rep,q_offset,causal", [
+    (70, 70, 4, 0, True), (64, 64, 1, 0, False), (130, 130, 8, 0, True), (20, 90, 2, 50, True),
+    (33, 100, 4, 17, False)])
+def test_kernel_pair_plain_versions_match_float64(sq, skv, rep, q_offset, causal):
+    """The kernel pair's route on CPU tensors runs its wrappers' plain
+    versions (the forward's bf16 arithmetic with lse in the kernels'
+    padded (B, H, rows) layout, the plain backward given it): lse within
+    1e-5 of float64's on the same bf16 values (fp32 sums), the padding rows
+    0, and out, dq, dk, dv within 1.25x the relative RMS error of the plain
+    route against the float64 function's (neither rounds P or dS below
+    fp32; both round each output once to bf16)."""
+    rng = np.random.default_rng(sq + skv + rep)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+                     for shape in ((1, sq, 2 * rep, 128), (1, skv, 2, 128), (1, skv, 2, 128),
+                                   (1, sq, 2 * rep, 128)))
+    leaves64 = [t.double().requires_grad_() for t in (q, k, v)]
+    out64, lse64 = _attention_float64(*leaves64, causal, q_offset)
+    out64.backward(dout.double())
+    exact = (out64.detach(), *(t.grad for t in leaves64))
+
+    out, lse = pt_flash.flash_attention_fwd_lse(q, k, v, causal, q_offset)
+    assert lse.shape == (1, 2 * rep, pt_flash.lse_rows(sq)) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse[..., :sq].double(), lse64.permute(0, 2, 1), rtol=1e-5,
+                               atol=1e-5)
+    assert not lse[..., sq:].any()
+
+    def route(kernels):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = pt_attn._BlockwiseAttention.apply(*leaves, causal, 16, q_offset, kernels)
+        got.backward(dout)
+        return (got.detach(), *(t.grad for t in leaves))
+
+    launches = (pt_flash.flash_attention_fwd_lse.launches, pt_flash.flash_attention_bwd.launches)
+    pair, plain = route(True), route(False)
+    assert launches == (pt_flash.flash_attention_fwd_lse.launches,
+                        pt_flash.flash_attention_bwd.launches)
+    torch.testing.assert_close(pair[0], out, rtol=0, atol=0)
+
+    def rel_rms(got, want):
+        return float((got.double() - want).norm() / want.norm())
+
+    for name, got, ref, want in zip(("out", "dq", "dk", "dv"), pair, plain, exact, strict=True):
+        assert got.dtype == torch.bfloat16
+        assert rel_rms(got, want) <= 1.25 * rel_rms(ref, want), name
+
+
+@pytest.mark.parametrize("case", ["fp32", "head_dim", "lse_rows", "lse_dtype", "dout_dtype",
+                                  "out_shape"])
+def test_kernel_pair_wrappers_refuse_operands_the_kernels_do_not_take(case):
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(37, 1, 70, 4, 2, 128))
+    out, lse = pt_flash.flash_attention_fwd_lse(q, k, v)
+    bwd = dict(q=q, k=k, v=v, out=out, dout=out, lse=lse)
+    args, error = {
+        "fp32": (dict(bwd, q=q.float(), k=k.float(), v=v.float()), TypeError),
+        "head_dim": (dict(bwd, q=q[..., :64], k=k[..., :64], v=v[..., :64]), ValueError),
+        "lse_rows": (dict(bwd, lse=lse[..., :70]), ValueError),
+        "lse_dtype": (dict(bwd, lse=lse.double()), ValueError),
+        "dout_dtype": (dict(bwd, dout=out.float()), ValueError),
+        "out_shape": (dict(bwd, out=out[:, :64]), ValueError),
+    }[case]
+    with pytest.raises(error):
+        pt_flash.flash_attention_bwd(**args)
+    if case in ("fp32", "head_dim"):
+        with pytest.raises(error):
+            pt_flash.flash_attention_fwd_lse(args["q"], args["k"], args["v"])
+
+
+def test_kernel_pair_forward_refuses_autograd():
+    """Forward only itself, as flash_attention_fwd: _BlockwiseAttention calls
+    it with autograd off and pairs it with the backward kernel."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(38, 1, 16, 4, 2, 128))
+    with pytest.raises(RuntimeError, match="no backward"):
+        pt_flash.flash_attention_fwd_lse(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("sq,rows", [(1, 64), (63, 64), (64, 64), (65, 128), (4096, 4096)])
+def test_lse_rows_pad_to_the_kernels_tiles(sq, rows):
+    assert pt_flash.lse_rows(sq) == rows
+
+
 def test_ops_flash_attention_rejects_an_unknown_backend():
     q, k, v = _qkv(34, 1, 8, 2, 2, 64)
     with pytest.raises(ValueError, match="unknown backend"):

@@ -1,10 +1,13 @@
-"""``chip_smoke.py``'s checkpoint and model phases rehearsed on the CPU.
+"""``chip_smoke.py``'s training-pair rows, checkpoint and model phases
+rehearsed on the CPU.
 
 The phase functions run with small widths on ``torch.device("cpu")``,
 where each wrapper runs its plain version; the tests count the matmul
 wrapper's calls, and the flash kernel's plain version's, in place of their
 launches.  Each phase must pass as it is, and each of its checks must fail
-when its fault is planted.  Checkpoint: a leaf the save drops, a restored
+when its fault is planted.  The training pair's rows (phase 2): a backward
+that rounds P or dS once to bf16, and a planted rounding that rounds
+nothing.  Checkpoint: a leaf the save drops, a restored
 byte flipped, a fourth node failure that does not happen, a verifier that
 ignores half of each tag.  Models (every registered architecture's smoke
 config): a causal mask dropped in one prefill layer, a decode cache written
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.checkpoint import manager as pt_manager
 from repro_torch.checkpoint.storage import StorageCluster
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gf256_encode, ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,6 +66,79 @@ def counters(monkeypatch):
 
     monkeypatch.setattr(gf256_encode, "gf_matmul_bytes_batched_plain", counted)
     return {"gf_matmul_bytes_batched": matmul}
+
+
+@pytest.fixture
+def pair_on_cpu(smoke, monkeypatch):
+    """Phase 2's training-pair rows at a small shape, each timing 1 ms."""
+    monkeypatch.setattr(smoke, "PAIR_CASE", ("small", 1, 300, 8, 2, 128))
+    monkeypatch.setattr(smoke, "median_ms", lambda fn, runs, per_event=1: 1.0)
+    return smoke
+
+
+def test_pair_rows_pass_on_the_cpu(pair_on_cpu):
+    """On CPU tensors the wrappers are their plain versions: no error; each
+    planted rounding lands well past the RMS allowance on the gradients it
+    moves."""
+    fwd, bwd = pair_on_cpu.check_pair_kernels(CPU)
+    assert fwd["max_abs_err"] == bwd["max_abs_err"] == fwd["lse_max_abs_err"] == 0
+    assert bwd["rms_ratio"] == 1.0 and bwd["repeat_bitwise"]
+    factor = pair_on_cpu.PAIR_GRADS["rms_factor"]
+    planted = bwd["planted_faults"]
+    assert planted["P"]["dv"]["rms_ratio"] > 1.2 * factor
+    assert min(planted["dS"][g]["rms_ratio"] for g in ("dq", "dk")) > 1.2 * factor
+    assert bwd["flops"]["with_splits"] * 5 == bwd["flops"]["model"] * 13
+    assert fwd["library_ms"] == bwd["library_ms"] == 1.0
+
+
+@pytest.mark.parametrize("sq,skv,causal,q_offset", [
+    (5, 5, True, 0), (1, 1, False, 0), (1, 7, False, 0), (4, 9, True, 3), (3, 6, True, 0)])
+def test_pair_exact_zeros_are_the_exact_function_s(smoke, sq, skv, causal, q_offset):
+    """The masks mark exactly the gradient rows that are 0 in float64."""
+    gen = torch.Generator().manual_seed(sq * 10 + skv)
+    q, k, v = (torch.randn(shape, generator=gen, dtype=torch.float64).requires_grad_()
+               for shape in ((1, sq, 2, 8), (1, skv, 1, 8), (1, skv, 1, 8)))
+    s = torch.einsum("bqhd,bkgd->bhqk", q, k) / 8 ** 0.5
+    if causal:
+        rows = q_offset + torch.arange(sq)[:, None]
+        s = s.masked_fill(torch.arange(skv)[None, :] > rows, -math.inf)
+    torch.einsum("bhqk,bkgd->bqhd", s.softmax(-1), v).backward(
+        torch.randn((1, sq, 2, 8), generator=gen, dtype=torch.float64))
+    for grad, zero in zip((q.grad, k.grad, v.grad),
+                          smoke.pair_exact_zeros(sq, skv, causal, q_offset, CPU), strict=True):
+        rows_zero = grad.abs().amax(dim=(0, 2, 3)) <= 1e-12 * grad.abs().max().clamp_min(1.0)
+        assert torch.equal(rows_zero, zero.reshape(-1))
+
+
+def _round_once(smoke, monkeypatch, rounded):
+    def kernel(q, k, v, out, dout, lse, causal=True, q_offset=0):
+        return smoke.pair_bwd_rounded_once(q, k, v, out, dout, lse, causal, q_offset, rounded)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd", kernel)
+
+
+def _round_p_once(smoke, monkeypatch):
+    _round_once(smoke, monkeypatch, "P")
+
+
+def _round_ds_once(smoke, monkeypatch):
+    _round_once(smoke, monkeypatch, "dS")
+
+
+def _plant_no_rounding(smoke, monkeypatch):
+    monkeypatch.setattr(smoke, "pair_bwd_rounded_once",
+                        lambda *args: fa.flash_attention_bwd_plain(*args[:-1]))
+
+
+@pytest.mark.parametrize("plant, message", [
+    (_round_p_once, "flash_attention_bwd small: dv differs"),
+    (_round_ds_once, "flash_attention_bwd small: dq differs"),
+    (_plant_no_rounding, "planted fault passed: P rounded once"),
+], ids=lambda x: x.__name__.strip("_") if callable(x) else None)
+def test_pair_rows_fail_on_a_planted_fault(pair_on_cpu, monkeypatch, plant, message):
+    plant(pair_on_cpu, monkeypatch)
+    with pytest.raises(AssertionError, match=message):
+        pair_on_cpu.check_pair_kernels(CPU)
 
 
 def test_checkpoint_phase_passes_on_the_cpu(smoke, counters):
@@ -301,7 +378,11 @@ def test_training_phase_passes_on_the_cpu(smoke, training_on_cpu):
     res = smoke.drive_training(CPU, training_on_cpu)
     main = res["main"]
     assert main["prefill_launches"] == main["layers"] == 2 and main["train_step_launches"] == 0
-    assert main["step0_loss"] == main["blockwise_loss"]
+    assert main["step0_loss"] == main["blockwise_loss"] and main["train_forward"] == "blockwise"
+    # on CPU tensors every train step's attention takes the plain loops
+    assert main["pair_launches"] == {
+        "forward": 0, "backward": 0,
+        "plain_calls": 3 * (1 + smoke.TRAIN_TIMED_STEPS) * main["layers"]}
     assert main["remat_vs_none"]["bitwise"] and main["adamw_vs_float64"]["ok"]
     assert len(main["remat"]["losses"]) == 1 + smoke.TRAIN_TIMED_STEPS
     assert res["directional"]["rel_err"] <= smoke.DIRECTIONAL_TOL

@@ -22,7 +22,9 @@ tables over 48 KiB; for the XOR fold input counts on both sides of its
 8-row load group and more stripes than a grid dimension may hold.
 """
 
+import importlib.util
 import itertools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +35,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gf256_encode as ge
 from repro_torch.kernels import ops
 from repro_torch.kernels import xor_reduce as xr
+from repro_torch.models import attention as pt_attn
 from repro_torch.models.attention import blockwise_attention
 
 pytestmark = pytest.mark.cuda
@@ -518,3 +521,206 @@ def test_flash_attention_refuses_operands_the_kernel_does_not_take(cuda):
         fa.flash_attention_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_fwd(q[:, :, :3], k, v)
+
+
+# -- the training pair: the flash forward with lse, the fused backward --------------------
+#
+# Tolerances, each with its reason.  out is the forward kernel's (the same
+# launch as flash_attention_fwd: equal bit for bit), held against its plain
+# version at the forward's bf16 TOLERANCE.  lse is an fp32 log of an fp32 sum
+# that the two take in another order: 1e-5.  dq, dk and dv are held against
+# the plain training backward given the same q, k, v, out, dout and lse
+# under chip_smoke.py's PAIR_GRADS, the smoke run's own check of the kernel:
+# both keep P and dS at fp32 precision (the kernel in three bf16 terms,
+# each product exact, summed in fp32), so they differ only in the order of
+# fp32 sums (and the plain scaling q before its products) before one
+# rounding to bf16 each.  Two such sums round to the same bf16 value or to
+# neighbours: elementwise, one ulp (2^-7 of the value) plus 1e-3 of the
+# row's RMS, the bf16 counterpart of the 3e-4 fp32 attention tolerance,
+# and 1e-4 only where the function is 0 in exact arithmetic
+# (chip_smoke.pair_exact_zeros: a row that sees one key has dP = delta, so
+# its dS is 0; both sides' fp32 sums leave residues of about 1e-7 there,
+# each its own).  In RMS over the other elements, the kernel's bf16 output is no further from the plain
+# backward's unrounded fp32 result than that result's own rounding to bf16
+# is, within 5%: where a sum falls on a bf16 tie (S = 1: a sum of rep bf16
+# values), either side is one rounding.  A backward that rounded P or dS
+# once to bf16 lands near 1.4 times that rounding, and fails
+# (test_kernel_pair_check_rejects_a_once_rounded_backward).
+
+PAIR_LSE_TOL = 1e-5
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+
+def _assert_pair_close(got, want, want32, exact_zero):
+    """``got`` (bf16) against the plain backward's ``want`` (bf16) and its
+    unrounded fp32 ``want32``, ``exact_zero`` where the function is 0."""
+    close = smoke.pair_closeness(got, want, want32, exact_zero)
+    assert close["ok"], close
+
+
+def _pair_inputs(rng, b, sq, skv, h, hkv, device):
+    q, _, _ = _qkv(rng, b, sq, h, hkv, 128, 128, torch.bfloat16, device)
+    _, k, v = _qkv(rng, b, skv, h, hkv, 128, 128, torch.bfloat16, device)
+    dout = torch.from_numpy(rng.standard_normal((b, sq, h, 128), dtype=np.float32)).to(
+        device=device, dtype=torch.bfloat16)
+    return q, k, v, dout
+
+
+def _check_pair(q, k, v, dout, causal, q_offset=0):
+    """The kernel pair against its plain versions on the same inputs; returns
+    the kernels' (out, lse, dq, dk, dv)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = (fa.flash_attention_fwd_lse.launches, fa.flash_attention_bwd.launches)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal, q_offset)
+    grads = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal, q_offset)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd_lse.launches, fa.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out, fa.flash_attention_fwd(q, k, v, causal, q_offset))
+    out_plain, lse_plain = fa.flash_attention_fwd_lse_plain(q, k, v, causal, q_offset)
+    _assert_close(out, out_plain, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_plain, rtol=PAIR_LSE_TOL, atol=PAIR_LSE_TOL)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, q_offset)
+    want32 = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, out, dout)), lse,
+                                          causal, q_offset)
+    zeros = smoke.pair_exact_zeros(q.shape[1], k.shape[1], causal, q_offset, q.device)
+    for got, ref, ref32, zero, like in zip(grads, want, want32, zeros, (q, k, v), strict=True):
+        assert got.dtype == torch.bfloat16 and got.shape == like.shape
+        _assert_pair_close(got, ref, ref32, zero)
+    return (out, lse, *grads)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 300])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_pair_matches_plain(cuda, s, rep, causal):
+    """Ragged lengths on both sides of the 64- and 128-row tiles, GQA groups
+    of 1, 4 and 8 query heads a KV head, causal and not."""
+    rng = np.random.default_rng(1000 * rep + s + causal)
+    _check_pair(*_pair_inputs(rng, 2, s, s, 2 * rep, 2, cuda), causal)
+
+
+def test_kernel_pair_matches_plain_at_yi_train_4k(cuda):
+    """yi-9b's train_4k attention: B=1, S=4096, 32 query heads over 4, D=128."""
+    rng = np.random.default_rng(4096)
+    _check_pair(*_pair_inputs(rng, 1, 4096, 4096, 32, 4, cuda), True)
+
+
+@pytest.mark.parametrize("sq,skv,q_offset", [(128, 512, 384), (100, 300, 200), (64, 256, 64),
+                                             (1, 129, 128), (200, 700, 37), (128, 128, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_pair_query_offset_matches_plain(cuda, sq, skv, q_offset, causal):
+    """q rows at positions q_offset + i against Skv keys (a context-parallel
+    rank's rows), Sq < Skv, offsets on and off the tile grids; keys no row
+    sees get a zero gradient."""
+    rng = np.random.default_rng(sq * 7 + skv * 3 + q_offset)
+    _check_pair(*_pair_inputs(rng, 2, sq, skv, 8, 2, cuda), causal, q_offset)
+
+
+@pytest.mark.parametrize("rounded", ["P", "dS"])
+def test_kernel_pair_check_rejects_a_once_rounded_backward(cuda, rounded):
+    """The planted control, at yi's train_4k shape: a backward that rounds
+    P (or dS) once to bf16 before its products fails the check that the
+    kernel passes (test_kernel_pair_matches_plain_at_yi_train_4k)."""
+    rng = np.random.default_rng(4096)
+    q, k, v, dout = _pair_inputs(rng, 1, 4096, 4096, 32, 4, cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, True)
+    want32 = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, out, dout)), lse, True)
+    wrong = smoke.pair_bwd_rounded_once(q, k, v, out, dout, lse, True, 0, rounded)
+    zeros = smoke.pair_exact_zeros(4096, 4096, True, 0, cuda)
+    close = [smoke.pair_closeness(*args) for args in zip(wrong, want, want32, zeros,
+                                                         strict=True)]
+    assert not all(c["ok"] for c in close), close
+
+
+def test_kernel_pair_repeats_bit_for_bit(cuda):
+    """No atomics: two runs on the same inputs give the same bits."""
+    rng = np.random.default_rng(21)
+    q, k, v, dout = _pair_inputs(rng, 1, 1000, 1000, 16, 2, cuda)
+    first = _check_pair(q, k, v, dout, True)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
+    again = (out, lse, *fa.flash_attention_bwd(q, k, v, out, dout, lse, True))
+    for x, y in zip(first, again, strict=True):
+        assert torch.equal(x, y)
+
+
+def test_kernel_pair_reads_strided_layouts(cuda):
+    """q, k, v and dout as (B,S,H,D) views of (B,H,S,D) storage."""
+    rng = np.random.default_rng(22)
+    q, k, v, dout = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                     for t in _pair_inputs(rng, 2, 300, 300, 8, 2, cuda))
+    assert not q.is_contiguous() and not dout.is_contiguous()
+    got = _check_pair(q, k, v, dout, True)
+    want = _check_pair(*(t.contiguous() for t in (q, k, v, dout)), True)
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)
+
+
+def _grads_float64(q, k, v, dout, causal):
+    """(out, dq, dk, dv) of the exact function in float64 on the same values."""
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    rep = q.shape[2] // k.shape[2]
+    kr, vr = k64.repeat_interleave(rep, dim=2), v64.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, kr) / q.shape[-1] ** 0.5
+    if causal:
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vr)
+    out.backward(dout.double())
+    return out.detach(), q64.grad, k64.grad, v64.grad
+
+
+def _rel_rms(got, want):
+    return float((got.double() - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_pair_is_no_less_precise_than_the_plain_path(cuda, causal):
+    """Against the function in float64 on the same bf16 values, the kernel
+    pair's out, dq, dk and dv are within 1.25x the relative RMS error of the
+    plain path's (blockwise forward and backward in fp32, rounded to bf16):
+    P and dS are not rounded to a narrower type on the way."""
+    rng = np.random.default_rng(23 + causal)
+    q, k, v, dout = _pair_inputs(rng, 1, 700, 700, 8, 2, cuda)
+    exact = _grads_float64(q, k, v, dout, causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = pt_attn._BlockwiseAttention.apply(*leaves, causal, 512, 0, False)
+    out.backward(dout)
+    plain = (out.detach(), *(t.grad for t in leaves))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = blockwise_attention(*leaves, causal, 512, 0)
+    out.backward(dout)
+    pair = (out.detach(), *(t.grad for t in leaves))
+    for name, got, ref, want in zip(("out", "dq", "dk", "dv"), pair, plain, exact, strict=True):
+        assert _rel_rms(got, want) <= 1.25 * _rel_rms(ref, want), name
+
+
+def test_blockwise_attention_on_card_takes_the_kernel_pair(cuda):
+    """The route: bf16 q, k, v of D = Dv = 128 take the kernel pair, both
+    directions, with a gradient or without; fp32 and other widths take the
+    plain loops (counted in PLAIN_CALLS)."""
+    rng = np.random.default_rng(24)
+    q, k, v, dout = _pair_inputs(rng, 1, 200, 200, 8, 2, cuda)
+
+    def run(q, k, v, grad=True):
+        counts = (fa.flash_attention_fwd_lse.launches, fa.flash_attention_bwd.launches,
+                  pt_attn.PLAIN_CALLS["cuda"])
+        with torch.set_grad_enabled(grad):
+            leaves = [t.detach().clone().requires_grad_(grad) for t in (q, k, v)]
+            out = blockwise_attention(*leaves, True, 512, 0)
+            if grad:
+                out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+        return (fa.flash_attention_fwd_lse.launches - counts[0],
+                fa.flash_attention_bwd.launches - counts[1],
+                pt_attn.PLAIN_CALLS["cuda"] - counts[2])
+
+    assert run(q, k, v) == (1, 1, 0)
+    assert run(q.float(), k.float(), v.float()) == (0, 0, 1)
+    assert run(q[..., :64], k[..., :64], v[..., :64]) == (0, 0, 1)
+    assert run(q, k, v, grad=False) == (1, 0, 0)
