@@ -6,7 +6,10 @@ shardings (PyTorch port of ``repro.launch.steps``):
   serve_step(params, cache, batch)      -> (next-token logits, cache')
 
 The train step differentiates ``loss_fn`` with ``torch.autograd.grad``
-(``cfg.remat`` as the model applies it), scales the learning rate by
+(``cfg.remat`` as the model applies it; a MoE's balance term, where
+``cfg.moe_aux_alpha`` sets one, joins the gradient inside the layer and is
+reported as ``aux_loss``, the sum over layers, beside the CE ``loss``),
+scales the learning rate by
 ``warmup_cosine`` of the optimizer's step with its defaults (0 at step 0,
 as in the reference) and updates params and moments in place
 (:func:`repro_torch.optim.adamw.adamw_update`).  Prefill and serve run under
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models import model as M
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
@@ -286,10 +290,13 @@ def make_train_step(
         return _sharded_train_step(arch, shape, mesh, adam)
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(params, cfg, batch)
+        with moe_mod.AUX.collect() as aux:
+            loss, grads = loss_and_grads(params, cfg, batch)
         lr_scale = warmup_cosine(opt_state["step"])
         new_params, new_opt, metrics = adamw_update(params, grads, opt_state, adam, lr_scale)
         metrics["loss"] = loss
+        if cfg.moe_aux_alpha:
+            metrics["aux_loss"] = torch.stack(aux).sum()
         return new_params, new_opt, metrics
 
     return train_step
@@ -297,6 +304,9 @@ def make_train_step(
 
 def _sharded_train_step(arch: ArchConfig, shape: ShapeConfig, mesh, adam: AdamWConfig):
     cfg = arch.model
+    if cfg.moe_aux_alpha:
+        raise NotImplementedError("the sharded train step takes no MoE balance term "
+                                  "(ModelConfig.moe_aux_alpha)")
     constraints = model_constraints(arch, shape, mesh)
     ctx = constraints[0].ctx
     b_shard = batch_shardings(arch, shape, mesh)

@@ -49,7 +49,15 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Params, apply_rope, dense_apply, dense_init
+from repro_torch.models.layers import (
+    Params,
+    Yarn,
+    apply_rope,
+    dense_apply,
+    dense_init,
+    rmsnorm_apply,
+    rmsnorm_init,
+)
 from repro_torch.parallel import spmd
 
 NEG_INF = -1e30
@@ -448,8 +456,11 @@ def mla_init(
     qk_nope: int,
     qk_rope: int,
     v_head: int,
+    kv_norm: bool = False,
 ) -> Params:
-    return {
+    """MLA's projections, and with ``kv_norm`` the latent's RMSNorm
+    (DeepSeek-V2's ``kv_a_layernorm``)."""
+    p = {
         "wq": dense_init(gen, d_model, n_heads * (qk_nope + qk_rope)),
         "w_dkv": dense_init(gen, d_model, kv_lora + qk_rope),
         "w_uk": dense_init(gen, kv_lora, n_heads * qk_nope),
@@ -458,6 +469,23 @@ def mla_init(
             gen, n_heads * v_head, d_model, scale=1.0 / math.sqrt(n_heads * v_head)
         ),
     }
+    if kv_norm:
+        p["kv_norm"] = rmsnorm_init(kv_lora, device=gen.device)
+    return p
+
+
+def _latent(p: Params, c_kv: torch.Tensor, norm_eps: float) -> torch.Tensor:
+    """The latent the up-projections (and the decode cache) take: normed
+    where the layer has the latent's RMSNorm."""
+    return rmsnorm_apply(p["kv_norm"], c_kv, norm_eps) if "kv_norm" in p else c_kv
+
+
+def _yarn_scaled(q: torch.Tensor, yarn: Yarn | None) -> torch.Tensor:
+    """q times YaRN's softmax scale (mscale squared; computed in fp32), so
+    that the attention's own 1/sqrt(D) gives the published scale."""
+    if yarn is None:
+        return q
+    return (q.float() * yarn.attention_scale()).to(q.dtype)
 
 
 def mla_apply(
@@ -473,27 +501,33 @@ def mla_apply(
     q_spec=None,
     kv_spec=None,
     resid=None,
+    yarn: Yarn | None = None,
+    norm_eps: float = 1e-6,
 ) -> torch.Tensor:
     """Training-time MLA: expand the latent to per-head K/V.  On a mesh, as
     :func:`gqa_apply`: with ``kv_spec`` the expanded K/V are all-gathered
-    over model once a layer (MLA has as many K/V heads as q heads)."""
+    over model once a layer (MLA has as many K/V heads as q heads).
+    ``yarn`` (DeepSeek-V2's ``rope_scaling``) sets the rotary frequencies
+    and the softmax scale; a layer with ``kv_norm`` params norms the latent
+    (at ``norm_eps``) before the up-projections."""
     sp = spmd.context(resid, kv_spec)
     if sp is not None and sp.seq_split and kv_spec is None:
         return sp.whole_sequence(lambda xx: mla_apply(
-            p, xx, n_heads, kv_lora, qk_nope, qk_rope, v_head, rope_theta, block), x)
+            p, xx, n_heads, kv_lora, qk_nope, qk_rope, v_head, rope_theta, block,
+            yarn=yarn, norm_eps=norm_eps), x)
     b, s, _ = x.shape
     q = dense_apply(p["wq"], x).reshape(b, s, n_heads, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     dkv = dense_apply(p["w_dkv"], x)                 # (B, S, kv_lora + qk_rope)
-    c_kv, k_rope = dkv[..., :kv_lora], dkv[..., kv_lora:]
+    c_kv, k_rope = _latent(p, dkv[..., :kv_lora], norm_eps), dkv[..., kv_lora:]
     offset = 0 if kv_spec is None else kv_spec.ctx.seq_offset(s)
     pos = offset + torch.arange(s, device=x.device)[None, :]
-    q_rope = apply_rope(q_rope, pos, rope_theta)
-    k_rope = apply_rope(k_rope[..., None, :], pos, rope_theta)[..., 0, :]
+    q_rope = apply_rope(q_rope, pos, rope_theta, yarn)
+    k_rope = apply_rope(k_rope[..., None, :], pos, rope_theta, yarn)[..., 0, :]
     k_nope = dense_apply(p["w_uk"], c_kv).reshape(b, s, n_heads, qk_nope)
     v = dense_apply(p["w_uv"], c_kv).reshape(b, s, n_heads, v_head)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, n_heads, qk_rope)], dim=-1)
-    qq = torch.cat([q_nope, q_rope], dim=-1)
+    qq = _yarn_scaled(torch.cat([q_nope, q_rope], dim=-1), yarn)
     if kv_spec is not None:
         k, v = kv_spec.ctx.gather_seq(k), kv_spec.ctx.gather_seq(v)
     out = ops.flash_attention(qq, k, v, True, device=qq.device, block=block, q_offset=offset)
@@ -519,11 +553,15 @@ def mla_decode(
     v_head: int,
     rope_theta: float = 1e4,
     resid=None,
+    yarn: Yarn | None = None,
+    norm_eps: float = 1e-6,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Matrix-absorbed MLA decode: attention in the compressed space.
 
-    The cache stores only (kv_lora + qk_rope) per token; the per-step
-    up-projections are absorbed into q and the output.  On a mesh the
+    The cache stores only (kv_lora + qk_rope) per token (the latent as the
+    up-projections take it: normed, where the layer norms it); the per-step
+    up-projections are absorbed into q and the output.  ``yarn`` and the
+    latent's norm act as in :func:`mla_apply`.  On a mesh the
     caches are this rank's shards, the model axis on the latent dim and on
     the rope dim: both score terms contract over a split dim, so their
     partial sums take one all-reduce over model, and the output is gathered
@@ -537,10 +575,10 @@ def mla_decode(
     split_r = None if sp is None else sp.model_dim(cache_kr, (qk_rope,))
     q = dense_apply(p["wq"], x).reshape(b, 1, n_heads, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
-    q_rope = apply_rope(q_rope, pos, rope_theta)
+    q_rope = apply_rope(q_rope, pos, rope_theta, yarn)
     dkv = dense_apply(p["w_dkv"], x)
-    c_new, kr_new = dkv[..., :kv_lora], dkv[..., kv_lora:]
-    kr_new = apply_rope(kr_new[..., None, :], pos, rope_theta)[..., 0, :]
+    c_new, kr_new = _latent(p, dkv[..., :kv_lora], norm_eps), dkv[..., kv_lora:]
+    kr_new = apply_rope(kr_new[..., None, :], pos, rope_theta, yarn)[..., 0, :]
     # absorb W_uk into the query: q_c[h] = q_nope[h] @ W_uk[h]^T  (B,1,H,kv_lora)
     w_uk = p["w_uk"]["w"].reshape(kv_lora, n_heads, qk_nope)
     q_c = _bf16_einsum("bqhn,lhn->bqhl", q_nope, w_uk)
@@ -552,6 +590,8 @@ def mla_decode(
     _write_row(cache_c, slot, c_new)
     _write_row(cache_kr, slot, kr_new)
     scale = 1.0 / math.sqrt(qk_nope + qk_rope)
+    if yarn is not None:
+        scale *= yarn.attention_scale()
     c16 = cache_c.to(torch.bfloat16).float()
     s_c = torch.einsum("bqhl,bkl->bhqk", q_c.float(), c16)
     s_r = torch.einsum("bqhr,bkr->bhqk", q_rope.to(torch.bfloat16).float(),

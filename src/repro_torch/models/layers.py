@@ -15,6 +15,7 @@ and puts its tensors on that generator's device; the draws differ from
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -133,27 +134,79 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> Params:
 
 
 def embed_apply(p: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return p["table"].to(dtype)[tokens.long()]
+    """The table's rows for ``tokens``, cast to ``dtype`` after the gather:
+    the same values as gathering from the cast table, but the backward sums
+    a repeated token's gradients into the table in its own dtype (fp32),
+    not in ``dtype``."""
+    return p["table"][tokens.long()].to(dtype)
 
 
 # -- rotary position embeddings ---------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN (arXiv:2309.00071) as DeepSeek-V2 sets it: a config's
+    ``rope_scaling`` group of type ``yarn`` whose ``mscale`` equals its
+    ``mscale_all_dim`` (as published), so that cos and sin keep their scale.
+
+    The rotary frequencies of the pairs below the correction range (fast
+    rotations, more than ``beta_fast`` turns over the original context)
+    are kept, those from its end on (fewer than ``beta_slow`` turns) are
+    divided by ``factor``, and a linear ramp blends the pairs between.  The
+    softmax scale gains ``attention_scale()``, mscale(factor,
+    mscale_all_dim) squared."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def correction_range(self, dim: int, theta: float) -> tuple[int, int]:
+        """The first and last pair index of the ramp, ``yarn_find_correction_range``."""
+
+        def pair_at(rotations: float) -> float:
+            turns = self.original_max_position / (rotations * 2 * math.pi)
+            return dim * math.log(turns) / (2 * math.log(theta))
+
+        low = math.floor(pair_at(self.beta_fast))
+        high = math.ceil(pair_at(self.beta_slow))
+        return max(low, 0), min(high, dim - 1)
+
+    def attention_scale(self) -> float:
+        """``yarn_get_mscale(factor, mscale_all_dim)`` squared."""
+        if self.factor <= 1:
+            return 1.0
+        return (0.1 * self.mscale_all_dim * math.log(self.factor) + 1.0) ** 2
+
+
 def rope_freqs(head_dim: int, theta: float = 1e4,
-               device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                            device=resolve_device(device)) / head_dim
-    return 1.0 / (theta ** exponent)
+               device: str | torch.device = DEFAULT_DEVICE,
+               yarn: Yarn | None = None) -> torch.Tensor:
+    dev = resolve_device(device)
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim
+    if yarn is None:
+        return 1.0 / (theta ** exponent)
+    extra = 1.0 / (theta ** exponent)
+    inter = 1.0 / (yarn.factor * theta ** exponent)
+    low, high = yarn.correction_range(head_dim, theta)
+    ramp = (torch.arange(head_dim // 2, dtype=torch.float32, device=dev) - low) / (
+        max(high - low, 0.001))
+    keep = 1.0 - torch.clamp(ramp, 0, 1)      # 1 below the range, 0 above it
+    return inter * (1 - keep) + extra * keep
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
+               yarn: Yarn | None = None) -> torch.Tensor:
     """x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
 
     Angles, cos and sin in fp32 whatever ``x``'s dtype; the rotation is
     computed in fp32 (bf16 x fp32 promotes, as in JAX) and cast back.
+    ``yarn`` takes YaRN's frequencies (:class:`Yarn`).
     """
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                               # (D/2,)
+    freqs = rope_freqs(d, theta, x.device, yarn)                         # (D/2,)
     angles = positions[..., :, None, None].to(torch.float32) * freqs     # (..,S,1,D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., 0::2], x[..., 1::2]

@@ -64,6 +64,7 @@ from repro_torch.models import xlstm as xl
 from repro_torch.parallel import spmd
 from repro_torch.models.layers import (
     Params,
+    Yarn,
     chunked_cross_entropy,
     dense_apply,
     dense_init,
@@ -102,11 +103,22 @@ class ModelConfig:
     moe_dense_first_n: int = 0     # leading layers with a dense FFN (deepseek)
     capacity_factor: float = 1.25
     moe_dense_fallback: bool = False
+    # DeepSeek-V2's published routing; the defaults keep the capacity path.
+    # The registry's deepseek-v2-lite-16b and its smoke preset leave these
+    # three, mla_kv_norm and rope_yarn at their defaults: the tests hold them
+    # against the JAX package's, which has none of the five (configs/
+    # registry.py is a verbatim copy of its file); the published model is
+    # h100bench/configs/deepseek-v2-lite-5l.json.
+    moe_norm_topk: bool = True     # top-k weights renormalised to sum 1
+    moe_aux_alpha: float = 0.0     # sequence-wise balance loss (``seq_aux``) weight
+    moe_dropless: bool = False     # every choice computed: grouped products, no capacity
     # MLA
     mla_kv_lora: int = 0
     mla_qk_nope: int = 128
     mla_qk_rope: int = 64
     mla_v_head: int = 128
+    mla_kv_norm: bool = False      # RMSNorm on the latent (``kv_a_layernorm``)
+    rope_yarn: Yarn | None = None  # YaRN frequencies and softmax scale (``rope_scaling``)
     # SSM / hybrid
     ssm_state: int = 0
     ssm_expansion: int = 2
@@ -182,6 +194,7 @@ class ModelConfig:
                 + d * (self.mla_kv_lora + self.mla_qk_rope)
                 + self.mla_kv_lora * self.n_heads * (self.mla_qk_nope + self.mla_v_head)
                 + self.n_heads * self.mla_v_head * d
+                + (self.mla_kv_lora if self.mla_kv_norm else 0)
             )
         return d * self.head_dim * (2 * self.n_heads + 2 * self.n_kv_heads)
 

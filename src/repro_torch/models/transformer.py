@@ -84,7 +84,8 @@ def decoder_layer_init(gen: torch.Generator, cfg) -> Params:
                  "ln2": rmsnorm_init(cfg.d_model, device=dev)}
     if cfg.mla_kv_lora:
         p["attn"] = attn.mla_init(gen, cfg.d_model, cfg.n_heads, cfg.mla_kv_lora,
-                                  cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_head)
+                                  cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_head,
+                                  kv_norm=cfg.mla_kv_norm)
     else:
         p["attn"] = attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.head_dim, qkv_bias=cfg.qkv_bias)
@@ -102,7 +103,8 @@ def _mlp_apply(p: Params, h: torch.Tensor, cfg, dense_fallback: bool) -> torch.T
     if cfg.moe_experts:
         return moe_mod.moe_apply(p["mlp"], h, cfg.moe_experts, cfg.moe_top_k,
                                  capacity_factor=cfg.capacity_factor,
-                                 dense_fallback=dense_fallback)
+                                 dense_fallback=dense_fallback,
+                                 **moe_mod.routing_options(cfg))
     if cfg.mlp_kind == "gelu":
         return gelu_mlp_apply(p["mlp"], h)
     return swiglu_apply(p["mlp"], h)
@@ -137,7 +139,8 @@ def decoder_layer_apply(p: Params, x: torch.Tensor, cfg, ep_spec=None, attn_spec
     if cfg.mla_kv_lora:
         a = attn.mla_apply(p["attn"], h, cfg.n_heads, cfg.mla_kv_lora, cfg.mla_qk_nope,
                            cfg.mla_qk_rope, cfg.mla_v_head, rope_theta=cfg.rope_theta,
-                           block=cfg.attn_block, **specs)
+                           block=cfg.attn_block, yarn=cfg.rope_yarn, norm_eps=cfg.norm_eps,
+                           **specs)
     else:
         a = attn.gqa_apply(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                            rope_theta=cfg.rope_theta, block=cfg.attn_block, **specs)
@@ -146,7 +149,8 @@ def decoder_layer_apply(p: Params, x: torch.Tensor, cfg, ep_spec=None, attn_spec
     if ep_ctx is not None:
         mesh, data_axes, model_axis = ep_ctx
         return x + moe_mod.moe_ep_apply(p["mlp"], h, cfg.moe_experts, cfg.moe_top_k,
-                                        cfg.capacity_factor, mesh, data_axes, model_axis)
+                                        cfg.capacity_factor, mesh, data_axes, model_axis,
+                                        **moe_mod.routing_options(cfg))
     sp = spmd.context(resid)
     if cfg.moe_experts and sp is not None:
         # per-row routing ranks a row's tokens together: route whole rows
@@ -169,7 +173,7 @@ def decoder_layer_decode(
         a, c_c, c_kr = attn.mla_decode(
             p["attn"], h, cache_layer["c"], cache_layer["kr"], cur_len, cfg.n_heads,
             cfg.mla_kv_lora, cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_head,
-            rope_theta=cfg.rope_theta, resid=resid)
+            rope_theta=cfg.rope_theta, resid=resid, yarn=cfg.rope_yarn, norm_eps=cfg.norm_eps)
         new_cache = {"c": c_c, "kr": c_kr}
     else:
         a, ck, cv = attn.gqa_decode(

@@ -724,3 +724,64 @@ def test_blockwise_attention_on_card_takes_the_kernel_pair(cuda):
     assert run(q.float(), k.float(), v.float()) == (0, 0, 1)
     assert run(q[..., :64], k[..., :64], v[..., :64]) == (0, 0, 1)
     assert run(q, k, v, grad=False) == (1, 0, 0)
+
+
+# -- the routed experts' grouped products (models/moe.py) ------------------------------------
+
+
+def _grouped_plain(a, b, ends):
+    """``torch._grouped_mm``'s plain version: each group's product of the
+    bf16 operands in fp32, rounded to bf16 once."""
+    from repro_torch.models import moe
+
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]]).tolist()
+    parts = []
+    for e, (lo, hi) in enumerate(zip(starts, ends.tolist())):
+        if a.dim() == 2 and b.dim() == 3:
+            parts.append(a[lo:hi].float() @ b[e].float())
+        else:                                  # (M, N) x (N, K) over row groups of N
+            parts.append(a[:, lo:hi].float() @ b[lo:hi].float())
+    out = torch.cat(parts) if b.dim() == 3 else torch.stack(parts)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("widths,counts", [
+    ((256, 192), [5, 0, 7, 3, 0, 0, 17, 1]),               # empty and odd groups
+    ((2048, 1408), [1536] * 60 + [0, 3000, 64, 1]),        # the published widths, uneven
+])
+def test_grouped_experts_match_per_group_products(cuda, monkeypatch, widths, counts):
+    """``moe._GroupedExperts`` forward and backward with ``torch._grouped_mm``
+    against the same arithmetic with each group's product in fp32 rounded
+    to bf16 once: every result within a relative RMS of 4e-3 (one bf16
+    rounding is 2^-9 of a value, and the backward chains three products),
+    and the weight gradients of empty groups exactly 0."""
+    from repro_torch.models import moe
+
+    d, ff = widths
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    counts_t = torch.tensor(counts, device=cuda)
+    ends = torch.cumsum(counts_t, 0).to(torch.int32)
+    n, e = int(counts_t.sum()), len(counts)
+    xs = torch.randn(n, d, generator=gen, device=cuda).to(torch.bfloat16)
+    ws = [torch.randn(e, d, ff, generator=gen, device=cuda) / d ** 0.5,
+          torch.randn(e, d, ff, generator=gen, device=cuda) / d ** 0.5,
+          torch.randn(e, ff, d, generator=gen, device=cuda) / ff ** 0.5]
+    dy = torch.randn(n, d, generator=gen, device=cuda).to(torch.bfloat16)
+
+    def run():
+        x = xs.clone().requires_grad_()
+        w = [t.clone().requires_grad_() for t in ws]
+        y = moe._GroupedExperts.apply(x, ends, *w)
+        y.backward(dy)
+        return [y.detach(), x.grad, *(t.grad for t in w)]
+
+    got = run()
+    monkeypatch.setattr(moe, "_grouped", _grouped_plain)
+    want = run()
+    for name, g, w in zip(("y", "dx", "dw_gate", "dw_up", "dw_down"), got, want):
+        assert torch.isfinite(g).all(), name
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel < 4e-3, (name, rel)
+    empty = counts_t == 0
+    for g in got[2:]:
+        assert (g[empty] == 0).all()

@@ -267,6 +267,27 @@ def test_chunked_cross_entropy_gradients_match_reference():
     assert max(errs.values()) <= 1e-4, errs
 
 
+def test_embedding_gradient_sums_a_repeated_token_in_fp32():
+    """``embed_apply`` casts the gathered rows, not the table: the forward
+    is the cast table's rows bit for bit, and a token seen 4,096 times gets
+    its gradients summed in the table's fp32 (read 6.2e-8 relative; the
+    sum in bf16 that a gather from the cast table gives reads 5.5e-2)."""
+    gen = torch.Generator().manual_seed(7)
+    table = torch.randn((8, 16), generator=gen) * 0.02
+    tokens = torch.full((4096,), 3)
+    tokens[::7] = 5
+    upstream = torch.randn((4096, 16), generator=gen)
+    leaf = table.clone().requires_grad_()
+    out = pt_layers.embed_apply({"table": leaf}, tokens)
+    assert torch.equal(out, table.to(torch.bfloat16)[tokens])
+    out.backward(upstream.to(torch.bfloat16))
+    want = torch.zeros((8, 16), dtype=torch.float64).index_add_(
+        0, tokens, upstream.to(torch.bfloat16).double())
+    assert leaf.grad.dtype == torch.float32
+    err = (leaf.grad.double() - want).norm() / want.norm()
+    assert err <= 1e-5, err
+
+
 def test_mamba2_gradients_stay_finite_where_the_decays_overflow():
     """A 128-token chunk whose decays sum past exp's range (zamba2-2.7b's
     ``ssm_chunk`` at its default init): above the diagonal ``exp(decay)``
