@@ -41,7 +41,9 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    reference's own; see SAME_ARITHMETIC); at whisper's and prefill_32k's
    shapes, planted faults (the mask of keys past S dropped, one KV tile
    skipped) must fail that tolerance.  The training pair at yi-9b's
-   train_4k attention (``PAIR_CASE``): the forward writing lse against its
+   train_4k attention (``PAIR_CASE``, D = Dv = 128) and at
+   deepseek-v2-lite's train4k MLA layer (``MLA_PAIR_CASE``, D = 192,
+   Dv = 128): the forward writing lse against its
    plain version, and the backward's dq, dk and dv against the plain
    training backward under ``PAIR_GRADS``, twice bit for bit; a backward
    with P or dS rounded once to bf16 (``pair_bwd_rounded_once``) must fail
@@ -244,8 +246,12 @@ FLASH_CASES = [
     ("yi-9b fp32", 1, 4096, 32, 4, 128, 128, "float32", True, 10, 3),
 ]
 # the training pair at yi-9b's train_4k attention, which a yi-9b-16l train
-# step runs 32 forwards and 16 backwards of: (case, B, S, H, Hkv, D)
-PAIR_CASE = ("yi-9b train_4k", 1, 4096, 32, 4, 128)
+# step runs 32 forwards and 16 backwards of: (case, B, S, H, Hkv, D, Dv)
+PAIR_CASE = ("yi-9b train_4k", 1, 4096, 32, 4, 128, 128)
+# and at a deepseek-v2-lite-5l train4k layer's MLA attention (B = 4 x S =
+# 4096, 16 heads each with its own K and V, q and k 128 + 64 rotary dims
+# wide), which a step of that cell runs 10 forwards and 5 backwards of
+MLA_PAIR_CASE = ("deepseek-v2-lite train4k", 4, 4096, 16, 16, 192, 128)
 # The backward kernel against its plain version, both keeping P and dS at
 # fp32 precision: they differ in the order of fp32 sums, then round once to
 # bf16 each.  Elementwise, one bf16 ulp plus 1e-3 of the row's RMS, and
@@ -259,10 +265,16 @@ PAIR_CASE = ("yi-9b train_4k", 1, 4096, 32, 4, 128)
 # adds an error about as large as that rounding, ~1.4 times it in RMS:
 # ``pair_bwd_rounded_once`` plants it, and the check must reject it.
 PAIR_GRADS = {"rtol": 2 ** -7, "row_atol": 1e-3, "zero_atol": 1e-4, "rms_factor": 1.05}
-# products per visible (row, key) pair: the model's (S, dP, dV, dK, dQ), and
-# the kernel's, with P and dS in three bf16 terms (S and dP in each of its
-# dK/dV and dQ kernels, 3 each for dV, dK, dQ)
-PAIR_BWD_PRODUCTS = {"model": 5, "with_splits": 13}
+# products of depth 1 per visible (row, key) pair, (a, b) for a D + b Dv:
+# the model's S, dK and dQ (D each) and dP and dV (Dv each); the kernel's,
+# with P and dS in three bf16 terms, S and dP in each of its dK/dV and dQ
+# kernels and 3 each of dK, dQ and dV: 5 and 13 of depth 128 at D = Dv
+PAIR_BWD_PRODUCTS = {"model": (3, 2), "with_splits": (8, 5)}
+# spill stores ptxas reports for a backward kernel: none, but the 128/128
+# dK/dV kernel's 44 bytes, which its code has had from the start (dK, dV,
+# S^T, dP^T and the 16 rows' lse and delta take about all of a consumer
+# thread's 240 registers); any other spill, or a larger one, fails phase 2
+PAIR_SPILL_BYTES = {"flash_bwd_dkdv<128, 128>": 44}
 RAGGED = (1, 31, 33, 100, 1000, 4108, 1_000_003)   # 4108 % 16 == 12
 MXU_RAGGED = (1, 127, 1000)
 YI = dict(d_model=4096, n_heads=32, n_kv_heads=4, head_dim=128)          # arXiv:2403.04652
@@ -455,6 +467,30 @@ def inspect_flash_build() -> dict:
                   f"{hgmma.get(name, 'not found')}; ptxas {'; '.join(lines)}", flush=True)
     return {"hgmma": tc, "hgmma_simt": simt,
             "ptxas": {name: lines for name, lines in usage.items() if "flash" in name}}
+
+
+def inspect_pair_build() -> dict:
+    """ptxas's registers and spills for each instantiation of the training
+    backward's two main kernels (``flash_bwd_dkdv`` and ``flash_bwd_dq`` at
+    each (D, Dv) of ``BWD_HEAD_DIMS``), from this run's build log.  Fails if
+    one is missing, or spills more than ``PAIR_SPILL_BYTES`` allows it: their
+    accumulators fill the 240 registers a consumer thread has, and a spill
+    puts values through local memory."""
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+
+    usage = {}
+    for name, lines in ptxas_usage("flash_attention_bwd").items():
+        found = re.search(r"(flash_bwd_dkdv|flash_bwd_dq)ILi(\d+)ELi(\d+)E", name)
+        if found:
+            usage[f"{found.group(1)}<{found.group(2)}, {found.group(3)}>"] = lines
+    check(len(usage) == 2 * len(BWD_HEAD_DIMS),
+          f"expected the dK/dV and dQ kernels at each of {BWD_HEAD_DIMS}, found {sorted(usage)}")
+    spilled = {name: lines for name, lines in usage.items()
+               if spills(lines) > PAIR_SPILL_BYTES.get(name, 0)}
+    check(not spilled, f"a backward kernel spills more than {PAIR_SPILL_BYTES}: {spilled}")
+    for name, lines in sorted(usage.items()):
+        print(f"    {name}: ptxas {'; '.join(lines)}", flush=True)
+    return usage
 
 
 def inspect_gf_build() -> dict:
@@ -942,27 +978,28 @@ def pair_closeness(got, want, want32, exact_zero, tol: dict = PAIR_GRADS) -> dic
             and ratio <= tol["rms_factor"]}
 
 
-def check_pair_kernels(dev) -> list[dict]:
-    """Phase 2, third slice: the training pair at ``PAIR_CASE``, each kernel
-    against its plain version on the same seeded inputs; a backward with P
-    or dS rounded once to bf16 must fail the backward's tolerance.  Times,
-    bounds (operations: the backward's counted with its splits and as the
-    model's 5 products), the backward's kernels by name, and SDPA's
-    forward and backward on the same tensors as the yardstick."""
+def check_pair_kernels(dev, case: tuple | None = None) -> list[dict]:
+    """Phase 2, third slice: the training pair at ``case`` (``PAIR_CASE``
+    by default; ``MLA_PAIR_CASE``), each kernel against its plain version on
+    the same seeded inputs; a backward with P or dS rounded once to bf16
+    must fail the backward's tolerance.  Times, bounds (operations: the
+    backward's counted with its splits and as the model's 5 products), the
+    backward's kernels by name, and SDPA's forward and backward on the same
+    tensors as the yardstick."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    name, b, s, h, hkv, d = PAIR_CASE
+    name, b, s, h, hkv, d, dv = PAIR_CASE if case is None else case
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 28)
 
     def draw(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, k, v, dout = draw(b, s, h, d), draw(b, s, hkv, d), draw(b, s, hkv, d), draw(b, s, h, d)
-    shape = f"q {(b, s, h, d)} k, v {(b, s, hkv, d)} bf16, causal"
+    q, k, v, dout = draw(b, s, h, d), draw(b, s, hkv, d), draw(b, s, hkv, dv), draw(b, s, h, dv)
+    shape = f"q {(b, s, h, d)} k {(b, s, hkv, d)} v {(b, s, hkv, dv)} bf16, causal"
     out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
     check(torch.equal(out, fa.flash_attention_fwd(q, k, v, True)),
           "flash_attention_fwd_lse's out is not flash_attention_fwd's")
@@ -995,17 +1032,18 @@ def check_pair_kernels(dev) -> list[dict]:
         del wrong
 
     pairs = b * h * s * (s + 1) // 2
-    fwd_flops = 2 * pairs * 2 * d
-    bwd_flops = {key: n * pairs * 2 * d for key, n in PAIR_BWD_PRODUCTS.items()}
+    fwd_flops = 2 * pairs * (d + dv)
+    bwd_flops = {key: 2 * pairs * (nd * d + ndv * dv)
+                 for key, (nd, ndv) in PAIR_BWD_PRODUCTS.items()}
     elem = q.element_size()
     fwd_bytes = elem * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
     # q, k, v, out, dout read, dq, dk, dv written, lse read, and each query
     # head's fp32 dK and dV share written and read back
     bwd_bytes = (elem * (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + dout.numel())
-                 + 4 * lse.numel() + 2 * 2 * 4 * b * s * h * d)
+                 + 4 * lse.numel() + 2 * 4 * b * s * h * (d + dv))
     peak = PEAK_FLOPS["bfloat16"]
     fwd_row = {
-        "name": "flash_attention_fwd_lse", "route": "cuda",
+        "name": "flash_attention_fwd_lse", "case": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82, writing lse", "launches": None,
         **fwd_close, "tolerance": SAME_ARITHMETIC["bfloat16"], "lse_max_abs_err": lse_err,
@@ -1017,7 +1055,7 @@ def check_pair_kernels(dev) -> list[dict]:
         "shape": shape, "flops": fwd_flops, "bytes": fwd_bytes,
     }
     bwd_row = {
-        "name": "flash_attention_bwd", "route": "cuda",
+        "name": "flash_attention_bwd", "case": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "none: the TPU kernel is forward only (src/repro/models/attention.py:150)",
         "launches": None, "max_abs_err": max(c["max_abs_err"] for c in close.values()),
@@ -3459,8 +3497,9 @@ def main() -> int:
     attention_rows = check_attention_kernels(dev)
     attention_rows[0]["hgmma"] = sum(flash_build["hgmma"].values())
     attention_rows[0]["nvcc_s"] = per_source.get("flash_attention")
-    pair_rows = check_pair_kernels(dev)
+    pair_rows = check_pair_kernels(dev) + check_pair_kernels(dev, MLA_PAIR_CASE)
     pair_rows[1]["nvcc_s"] = per_source.get("flash_attention_bwd")
+    pair_rows[1]["ptxas"] = inspect_pair_build()
     phase_done("2")
 
     counters = {fn.__name__: fn for fn in (*ge.KERNELS, *xr.KERNELS, *fa.KERNELS)}

@@ -70,8 +70,9 @@ HEAD_DIMS = tuple((d, dv) for d in (64, 80, 128, 192) for dv in (64, 80, 128)) +
 KV_TILE = 128
 #: keys per KV tile of the fp32 (SIMT) body, simt::kBK in the source
 FP32_KV_TILE = 64
-#: the (D, Dv) head-dim pairs the backward kernel takes (bf16 only)
-BWD_HEAD_DIMS = ((128, 128),)
+#: the (D, Dv) head-dim pairs the backward kernel takes (bf16 only): yi's
+#: and most GQA models' 128/128, and deepseek-v2 MLA's 192/128
+BWD_HEAD_DIMS = ((128, 128), (192, 128))
 #: rows of the lse and delta buffers are padded to a multiple of this
 #: (kLsePad in flash_attention_bwd.cu)
 LSE_PAD = 64

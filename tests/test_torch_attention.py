@@ -588,9 +588,13 @@ def test_flash_wrapper_is_forward_only(needs_grad):
     ("meta", ("bfloat16",) * 3, 128, 128, False),
     ("cuda", ("float32",) * 3, 128, 128, False),
     ("cuda", ("bfloat16", "float32", "bfloat16"), 128, 128, False),
-    ("cuda", ("bfloat16",) * 3, 192, 128, False),     # MLA
+    ("cuda", ("bfloat16",) * 3, 192, 128, True),      # MLA
+    ("cpu", ("bfloat16",) * 3, 192, 128, False),
+    ("cuda", ("float32",) * 3, 192, 128, False),
     ("cuda", ("bfloat16",) * 3, 160, 160, False),     # zamba2's shared block
     ("cuda", ("bfloat16",) * 3, 64, 64, False),       # whisper
+    ("cuda", ("bfloat16",) * 3, 192, 64, False),
+    ("cuda", ("bfloat16",) * 3, 128, 192, False),
     ("cuda", ("float16",) * 3, 128, 128, False),
 ])
 def test_kernel_pair_route(device, dtypes, d, dv, takes):
@@ -673,6 +677,43 @@ def test_kernel_pair_plain_versions_match_float64(sq, skv, rep, q_offset, causal
     for name, got, ref, want in zip(("out", "dq", "dk", "dv"), pair, plain, exact, strict=True):
         assert got.dtype == torch.bfloat16
         assert rel_rms(got, want) <= 1.25 * rel_rms(ref, want), name
+
+
+@pytest.mark.parametrize("sq,skv,h,hkv,q_offset,causal", [
+    (70, 70, 2, 2, 0, True), (64, 64, 8, 2, 0, False), (130, 130, 4, 4, 0, True),
+    (20, 90, 4, 1, 50, True), (33, 100, 2, 2, 17, False)])
+def test_kernel_pair_takes_mla_head_dims(sq, skv, h, hkv, q_offset, causal):
+    """The pair's wrappers take bf16 q and k 192 wide and v 128 (MLA's
+    heads); on CPU tensors their plain versions run.  out is the flash
+    forward's, lse within 1e-5 of float64's, and dq, dk, dv within 1.25x
+    the relative RMS error that blockwise attention's autograd gradients
+    (float64, on the same bf16 values) take from their own rounding to
+    bf16: one rounding each, P and dS kept at fp32 (a backward that
+    rounded either once to bf16 lands near 1.4x)."""
+    rng = np.random.default_rng(sq + skv)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+                     for shape in ((1, sq, h, 192), (1, skv, hkv, 192), (1, skv, hkv, 128),
+                                   (1, sq, h, 128)))
+    launches = (pt_flash.flash_attention_fwd_lse.launches, pt_flash.flash_attention_bwd.launches)
+    out, lse = pt_flash.flash_attention_fwd_lse(q, k, v, causal, q_offset)
+    grads = pt_flash.flash_attention_bwd(q, k, v, out, dout, lse, causal, q_offset)
+    assert launches == (pt_flash.flash_attention_fwd_lse.launches,
+                        pt_flash.flash_attention_bwd.launches)
+    assert torch.equal(out, pt_flash.flash_attention_fwd(q, k, v, causal, q_offset))
+
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    out64 = pt_attn._blockwise_attention_autodiff(*leaves, causal, 16, q_offset)
+    out64.backward(dout.double())
+    _, lse64 = _attention_float64(*(t.detach() for t in leaves), causal, q_offset)
+    torch.testing.assert_close(lse[..., :sq].double(), lse64.permute(0, 2, 1), rtol=1e-5,
+                               atol=1e-5)
+
+    def rel_rms(got, want):
+        return float((got.double() - want).norm() / want.norm())
+
+    for name, got, like, leaf in zip(("dq", "dk", "dv"), grads, (q, k, v), leaves, strict=True):
+        assert got.dtype == torch.bfloat16 and got.shape == like.shape, name
+        assert rel_rms(got, leaf.grad) <= 1.25 * rel_rms(leaf.grad.bfloat16(), leaf.grad), name
 
 
 @pytest.mark.parametrize("case", ["fp32", "head_dim", "lse_rows", "lse_dtype", "dout_dtype",

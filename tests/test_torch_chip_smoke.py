@@ -71,23 +71,28 @@ def counters(monkeypatch):
 @pytest.fixture
 def pair_on_cpu(smoke, monkeypatch):
     """Phase 2's training-pair rows at a small shape, each timing 1 ms."""
-    monkeypatch.setattr(smoke, "PAIR_CASE", ("small", 1, 300, 8, 2, 128))
+    monkeypatch.setattr(smoke, "PAIR_CASE", ("small", 1, 300, 8, 2, 128, 128))
     monkeypatch.setattr(smoke, "median_ms", lambda fn, runs, per_event=1: 1.0)
     return smoke
 
 
-def test_pair_rows_pass_on_the_cpu(pair_on_cpu):
-    """On CPU tensors the wrappers are their plain versions: no error; each
-    planted rounding lands well past the RMS allowance on the gradients it
-    moves."""
-    fwd, bwd = pair_on_cpu.check_pair_kernels(CPU)
+@pytest.mark.parametrize("case", [None, ("small mla", 1, 300, 4, 4, 192, 128)])
+def test_pair_rows_pass_on_the_cpu(pair_on_cpu, case):
+    """On CPU tensors the wrappers are their plain versions, at D = Dv = 128
+    and at MLA's 192/128: no error; each planted rounding lands well past
+    the RMS allowance on the gradients it moves; the backward's products
+    counted at 8D + 5Dv a pair with the splits, 3D + 2Dv as the model's."""
+    fwd, bwd = pair_on_cpu.check_pair_kernels(CPU, case)
     assert fwd["max_abs_err"] == bwd["max_abs_err"] == fwd["lse_max_abs_err"] == 0
     assert bwd["rms_ratio"] == 1.0 and bwd["repeat_bitwise"]
     factor = pair_on_cpu.PAIR_GRADS["rms_factor"]
     planted = bwd["planted_faults"]
     assert planted["P"]["dv"]["rms_ratio"] > 1.2 * factor
     assert min(planted["dS"][g]["rms_ratio"] for g in ("dq", "dk")) > 1.2 * factor
-    assert bwd["flops"]["with_splits"] * 5 == bwd["flops"]["model"] * 13
+    d, dv = (case or pair_on_cpu.PAIR_CASE)[-2:]
+    flops = bwd["flops"]
+    assert flops["with_splits"] * (3 * d + 2 * dv) == flops["model"] * (8 * d + 5 * dv)
+    assert fwd["flops"] * (8 * d + 5 * dv) == bwd["flops"]["with_splits"] * (d + dv)
     assert fwd["library_ms"] == bwd["library_ms"] == 1.0
 
 

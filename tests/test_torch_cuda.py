@@ -24,6 +24,7 @@ tables over 48 KiB; for the XOR fold input counts on both sides of its
 
 import importlib.util
 import itertools
+import types
 from pathlib import Path
 
 import numpy as np
@@ -561,12 +562,21 @@ def _assert_pair_close(got, want, want32, exact_zero):
     assert close["ok"], close
 
 
-def _pair_inputs(rng, b, sq, skv, h, hkv, device):
-    q, _, _ = _qkv(rng, b, sq, h, hkv, 128, 128, torch.bfloat16, device)
-    _, k, v = _qkv(rng, b, skv, h, hkv, 128, 128, torch.bfloat16, device)
-    dout = torch.from_numpy(rng.standard_normal((b, sq, h, 128), dtype=np.float32)).to(
+def _pair_inputs(rng, b, sq, skv, h, hkv, device, dims=(128, 128)):
+    """q, k, v and dout in bf16 at head dims ``dims`` = (D, Dv), one of
+    ``fa.BWD_HEAD_DIMS``."""
+    d, dv = dims
+    q, _, _ = _qkv(rng, b, sq, h, hkv, d, dv, torch.bfloat16, device)
+    _, k, v = _qkv(rng, b, skv, h, hkv, d, dv, torch.bfloat16, device)
+    dout = torch.from_numpy(rng.standard_normal((b, sq, h, dv), dtype=np.float32)).to(
         device=device, dtype=torch.bfloat16)
     return q, k, v, dout
+
+
+#: the attention of a train_4k layer at each of the pair's head dims, (B, S,
+#: H, Hkv): yi-9b's 32 query heads over 4, and deepseek-v2-lite's MLA, 16
+#: heads each with its own K and V (the cell's batch of 4 is 4 such calls)
+TRAIN_4K_LAYERS = {(128, 128): (1, 4096, 32, 4), (192, 128): (1, 4096, 16, 16)}
 
 
 def _check_pair(q, k, v, dout, causal, q_offset=0):
@@ -594,13 +604,15 @@ def _check_pair(q, k, v, dout, causal, q_offset=0):
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 300])
-@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("dims,rep", [((128, 128), 1), ((128, 128), 4), ((128, 128), 8),
+                                      ((192, 128), 1), ((192, 128), 4)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernel_pair_matches_plain(cuda, s, rep, causal):
-    """Ragged lengths on both sides of the 64- and 128-row tiles, GQA groups
-    of 1, 4 and 8 query heads a KV head, causal and not."""
+def test_kernel_pair_matches_plain(cuda, s, dims, rep, causal):
+    """Ragged lengths on both sides of the 32-, 64- and 128-row tiles, GQA
+    groups of 1, 4 and 8 query heads a KV head (MLA's 1 and 4 at 192/128),
+    causal and not."""
     rng = np.random.default_rng(1000 * rep + s + causal)
-    _check_pair(*_pair_inputs(rng, 2, s, s, 2 * rep, 2, cuda), causal)
+    _check_pair(*_pair_inputs(rng, 2, s, s, 2 * rep, 2, cuda, dims), causal)
 
 
 def test_kernel_pair_matches_plain_at_yi_train_4k(cuda):
@@ -609,39 +621,51 @@ def test_kernel_pair_matches_plain_at_yi_train_4k(cuda):
     _check_pair(*_pair_inputs(rng, 1, 4096, 4096, 32, 4, cuda), True)
 
 
+def test_kernel_pair_matches_plain_at_dsv2lite_train_4k(cuda):
+    """deepseek-v2-lite's train_4k MLA attention, one of the cell's 4
+    sequences: S=4096, 16 heads, q and k 192 wide (128 + 64 rotary), v 128."""
+    rng = np.random.default_rng(4097)
+    _check_pair(*_pair_inputs(rng, 1, 4096, 4096, 16, 16, cuda, (192, 128)), True)
+
+
 @pytest.mark.parametrize("sq,skv,q_offset", [(128, 512, 384), (100, 300, 200), (64, 256, 64),
                                              (1, 129, 128), (200, 700, 37), (128, 128, 256)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernel_pair_query_offset_matches_plain(cuda, sq, skv, q_offset, causal):
+@pytest.mark.parametrize("dims", fa.BWD_HEAD_DIMS)
+def test_kernel_pair_query_offset_matches_plain(cuda, sq, skv, q_offset, causal, dims):
     """q rows at positions q_offset + i against Skv keys (a context-parallel
-    rank's rows), Sq < Skv, offsets on and off the tile grids; keys no row
-    sees get a zero gradient."""
+    rank's rows, as MLA's on a mesh), Sq < Skv, offsets on and off the tile
+    grids; keys no row sees get a zero gradient."""
     rng = np.random.default_rng(sq * 7 + skv * 3 + q_offset)
-    _check_pair(*_pair_inputs(rng, 2, sq, skv, 8, 2, cuda), causal, q_offset)
+    _check_pair(*_pair_inputs(rng, 2, sq, skv, 8, 2, cuda, dims), causal, q_offset)
 
 
 @pytest.mark.parametrize("rounded", ["P", "dS"])
-def test_kernel_pair_check_rejects_a_once_rounded_backward(cuda, rounded):
-    """The planted control, at yi's train_4k shape: a backward that rounds
-    P (or dS) once to bf16 before its products fails the check that the
-    kernel passes (test_kernel_pair_matches_plain_at_yi_train_4k)."""
-    rng = np.random.default_rng(4096)
-    q, k, v, dout = _pair_inputs(rng, 1, 4096, 4096, 32, 4, cuda)
+@pytest.mark.parametrize("dims", fa.BWD_HEAD_DIMS)
+def test_kernel_pair_check_rejects_a_once_rounded_backward(cuda, rounded, dims):
+    """The planted control, at the train_4k layer of each head-dim pair: a
+    backward that rounds P (or dS) once to bf16 before its products fails
+    the check that the kernel passes (test_kernel_pair_matches_plain_at_yi_
+    train_4k, ..._at_dsv2lite_train_4k)."""
+    b, s, h, hkv = TRAIN_4K_LAYERS[dims]
+    rng = np.random.default_rng(4096 if dims == (128, 128) else 4097)
+    q, k, v, dout = _pair_inputs(rng, b, s, s, h, hkv, cuda, dims)
     torch.backends.cuda.matmul.allow_tf32 = False
     out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
     want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, True)
     want32 = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, out, dout)), lse, True)
     wrong = smoke.pair_bwd_rounded_once(q, k, v, out, dout, lse, True, 0, rounded)
-    zeros = smoke.pair_exact_zeros(4096, 4096, True, 0, cuda)
+    zeros = smoke.pair_exact_zeros(s, s, True, 0, cuda)
     close = [smoke.pair_closeness(*args) for args in zip(wrong, want, want32, zeros,
                                                          strict=True)]
     assert not all(c["ok"] for c in close), close
 
 
-def test_kernel_pair_repeats_bit_for_bit(cuda):
+@pytest.mark.parametrize("dims", fa.BWD_HEAD_DIMS)
+def test_kernel_pair_repeats_bit_for_bit(cuda, dims):
     """No atomics: two runs on the same inputs give the same bits."""
     rng = np.random.default_rng(21)
-    q, k, v, dout = _pair_inputs(rng, 1, 1000, 1000, 16, 2, cuda)
+    q, k, v, dout = _pair_inputs(rng, 1, 1000, 1000, 16, 2, cuda, dims)
     first = _check_pair(q, k, v, dout, True)
     out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
     again = (out, lse, *fa.flash_attention_bwd(q, k, v, out, dout, lse, True))
@@ -649,11 +673,12 @@ def test_kernel_pair_repeats_bit_for_bit(cuda):
         assert torch.equal(x, y)
 
 
-def test_kernel_pair_reads_strided_layouts(cuda):
+@pytest.mark.parametrize("dims", fa.BWD_HEAD_DIMS)
+def test_kernel_pair_reads_strided_layouts(cuda, dims):
     """q, k, v and dout as (B,S,H,D) views of (B,H,S,D) storage."""
     rng = np.random.default_rng(22)
     q, k, v, dout = (t.transpose(1, 2).contiguous().transpose(1, 2)
-                     for t in _pair_inputs(rng, 2, 300, 300, 8, 2, cuda))
+                     for t in _pair_inputs(rng, 2, 300, 300, 8, 2, cuda, dims))
     assert not q.is_contiguous() and not dout.is_contiguous()
     got = _check_pair(q, k, v, dout, True)
     want = _check_pair(*(t.contiguous() for t in (q, k, v, dout)), True)
@@ -680,13 +705,14 @@ def _rel_rms(got, want):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernel_pair_is_no_less_precise_than_the_plain_path(cuda, causal):
+@pytest.mark.parametrize("dims", fa.BWD_HEAD_DIMS)
+def test_kernel_pair_is_no_less_precise_than_the_plain_path(cuda, causal, dims):
     """Against the function in float64 on the same bf16 values, the kernel
     pair's out, dq, dk and dv are within 1.25x the relative RMS error of the
     plain path's (blockwise forward and backward in fp32, rounded to bf16):
     P and dS are not rounded to a narrower type on the way."""
     rng = np.random.default_rng(23 + causal)
-    q, k, v, dout = _pair_inputs(rng, 1, 700, 700, 8, 2, cuda)
+    q, k, v, dout = _pair_inputs(rng, 1, 700, 700, 8, 2, cuda, dims)
     exact = _grads_float64(q, k, v, dout, causal)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = pt_attn._BlockwiseAttention.apply(*leaves, causal, 512, 0, False)
@@ -701,7 +727,8 @@ def test_kernel_pair_is_no_less_precise_than_the_plain_path(cuda, causal):
 
 
 def test_blockwise_attention_on_card_takes_the_kernel_pair(cuda):
-    """The route: bf16 q, k, v of D = Dv = 128 take the kernel pair, both
+    """The route: bf16 q, k, v of D = Dv = 128 (and MLA's 192/128,
+    test_mla_layer_trains_on_the_kernel_pair) take the kernel pair, both
     directions, with a gradient or without; fp32 and other widths take the
     plain loops (counted in PLAIN_CALLS)."""
     rng = np.random.default_rng(24)
@@ -724,6 +751,71 @@ def test_blockwise_attention_on_card_takes_the_kernel_pair(cuda):
     assert run(q.float(), k.float(), v.float()) == (0, 0, 1)
     assert run(q[..., :64], k[..., :64], v[..., :64]) == (0, 0, 1)
     assert run(q, k, v, grad=False) == (1, 0, 0)
+
+
+def test_mla_layer_trains_on_the_kernel_pair(cuda, monkeypatch):
+    """One MLA layer at DeepSeek-V2-Lite's widths (d_model 2048, 16 heads,
+    latent 512 with its RMSNorm, q and k 128 + 64 rotary, v 128, YaRN as
+    published), forward and backward on bf16 products: its attention takes
+    the kernel pair, one forward with lse and one backward, none on the
+    plain loops.  The backward kernel's gradients, on the operands the layer
+    gave it, are within pair_closeness of its plain version.  The layer's
+    parameter gradients are no further in RMS from the layer's with every
+    product in fp32 than PAIR_GRADS' rms_factor times the same layer's on
+    the plain loops.  (Elementwise, parameter gradients after bf16
+    activations move by more than an ulp under any change of the order of
+    fp32 sums, the plain versions' own included, so only the RMS is held.)"""
+    from repro_torch.models import layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(30)
+    widths = dict(n_heads=16, kv_lora=512, qk_nope=128, qk_rope=64, v_head=128)
+    params = pt_attn.mla_init(gen, 2048, **widths, kv_norm=True)
+    yarn = layers.Yarn(factor=40.0, original_max_position=4096, beta_fast=32.0, beta_slow=1.0,
+                       mscale_all_dim=0.707)
+    x = torch.randn((2, 1024, 2048), generator=gen, device=cuda)
+    dy = torch.randn((2, 1024, 2048), generator=gen, device=cuda)
+    seen = []
+    kernel = fa.flash_attention_bwd
+
+    def recording(*args):
+        grads = kernel(*args)
+        seen.append((args, grads))
+        return grads
+
+    def layer_grads():
+        p = {name: {key: t.detach().clone().requires_grad_() for key, t in sub.items()}
+             for name, sub in params.items()}
+        y = pt_attn.mla_apply(p, x, **widths, yarn=yarn, norm_eps=1e-6)
+        y.backward(dy.to(y.dtype))
+        torch.cuda.synchronize()
+        return {f"{name}.{key}": t.grad for name, sub in p.items() for key, t in sub.items()}
+
+    monkeypatch.setattr(pt_attn, "fa", types.SimpleNamespace(
+        **{**vars(fa), "flash_attention_bwd": recording}))
+    counts = (fa.flash_attention_fwd_lse.launches, kernel.launches, pt_attn.PLAIN_CALLS["cuda"])
+    pair = layer_grads()
+    assert (fa.flash_attention_fwd_lse.launches - counts[0], kernel.launches - counts[1],
+            pt_attn.PLAIN_CALLS["cuda"] - counts[2]) == (1, 1, 0)
+
+    (q, k, v, out, dout, lse, causal, q_offset), got = seen[0]
+    assert q.shape[-1] == 192 and v.shape[-1] == 128 and causal and q_offset == 0
+    want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, q_offset)
+    want32 = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, out, dout)), lse,
+                                          causal, q_offset)
+    zeros = smoke.pair_exact_zeros(q.shape[1], k.shape[1], causal, q_offset, cuda)
+    for g, ref, ref32, zero in zip(got, want, want32, zeros, strict=True):
+        _assert_pair_close(g, ref, ref32, zero)
+
+    monkeypatch.setattr(pt_attn, "kernel_pair_takes", lambda *args: False)
+    plain = layer_grads()
+    monkeypatch.setattr(layers.dense_apply, "__defaults__", (torch.float32,))
+    exact = layer_grads()
+    for name, g in pair.items():
+        zero = torch.zeros((1,) * g.ndim, dtype=torch.bool, device=cuda)
+        close = smoke.pair_closeness(g, plain[name], exact[name], zero)
+        assert close["rms_ratio"] <= smoke.PAIR_GRADS["rms_factor"], (name, close)
 
 
 # -- the routed experts' grouped products (models/moe.py) ------------------------------------
