@@ -64,10 +64,11 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
 4. The attention main path, with every launch counter set to 0 again:
    ``ops.rs_encode_mxu`` against ``ops.rs_encode``; one yi-9b GQA layer and
    one deepseek-v2-lite MLA layer at full width from seeded params, whose
-   q/k/v go through ``ops.flash_attention`` and are held against the
-   kernel's plain version and against ``blockwise_attention`` (which
-   rounds elsewhere; see OTHER_ROUNDING); decode of the last position
-   against the layer's last row.
+   q/k/v go through the flash kernel (the layers' route on the card) and
+   are held against the kernel's plain version and against
+   ``blockwise_attention``'s plain loops (which round elsewhere; see
+   OTHER_ROUNDING); decode of the last position against the layer's last
+   row.
 5. The checkpoint path, with every launch counter set to 0 again: the
    training state of one yi-9b GQA layer at full width (bf16 weights from
    seeded params, two fp32 AdamW-moment stand-ins of the same shapes, an
@@ -738,14 +739,14 @@ def planted_faults(q, k, v, causal: bool, got, tol: dict) -> dict:
         pad = torch.zeros_like(k[:, :tile - s % tile])
         padv = torch.zeros_like(v[:, :pad.shape[1]])
         faults["mask of keys >= S dropped"] = fa.flash_attention_fwd_plain(
-            q, torch.cat([k, pad], 1), torch.cat([v, padv], 1), False)
+            q, torch.cat([k, pad], 1), torch.cat([v, padv], 1), False)[0]
     if causal:
         def skip(skipped: int, first_row: int):
             """q rows from first_row on skip KV tile ``skipped``."""
             lo, hi = skipped * tile, (skipped + 1) * tile
             k2, v2 = torch.cat([k[:, :lo], k[:, hi:]], 1), torch.cat([v[:, :lo], v[:, hi:]], 1)
             rest = fa.flash_attention_fwd_plain(q[:, first_row:], k2, v2, True,
-                                                q_offset=first_row - tile)
+                                                q_offset=first_row - tile)[0]
             return torch.cat([got[:, :first_row], rest], 1)
 
         mid = s // 2 // tile
@@ -775,7 +776,7 @@ def flash_case(dev, gen, case) -> dict:
     q, k, v = draw((b, s, h, d)), draw((b, s, hkv, d)), draw((b, s, hkv, dv))
     got = fa.flash_attention_fwd(q, k, v, causal)
     tol = SAME_ARITHMETIC[dtype]
-    close = assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal), tol,
+    close = assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal)[0], tol,
                          f"flash_attention_fwd {name}")
     faults = planted_faults(q, k, v, causal, got, tol) if name in PLANTED_FAULT_CASES else {}
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
@@ -786,7 +787,8 @@ def flash_case(dev, gen, case) -> dict:
         "case": name, "shape": f"q {(b, s, h, d)} k {(b, s, hkv, d)} v {(b, s, hkv, dv)}",
         "dtype": dtype, "causal": causal, **close, "tolerance": tol,
         "ms": median_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), runs),
-        "plain_ms": median_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal), plain_runs),
+        "plain_ms": median_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal)[0],
+                              plain_runs),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -907,7 +909,7 @@ def pair_bwd_rounded_once(q, k, v, out, dout, lse, causal, q_offset, rounded: st
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.attention import _causal_mask, _group_q, _row_dot
+    from repro_torch.kernels.flash_attention import _causal_mask, _group_q, _row_dot
 
     b, sq, h, d = q.shape
     hkv = k.shape[2]
@@ -1003,7 +1005,7 @@ def check_pair_kernels(dev, case: tuple | None = None) -> list[dict]:
     out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
     check(torch.equal(out, fa.flash_attention_fwd(q, k, v, True)),
           "flash_attention_fwd_lse's out is not flash_attention_fwd's")
-    want_out, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v, True)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, True)
     fwd_close = assert_close(out, want_out, SAME_ARITHMETIC["bfloat16"],
                              f"flash_attention_fwd_lse {name}")
     lse_err = float((lse - want_lse).abs().max())
@@ -1048,7 +1050,7 @@ def check_pair_kernels(dev, case: tuple | None = None) -> list[dict]:
         "replaces": "src/repro/kernels/flash_attention.py:82, writing lse", "launches": None,
         **fwd_close, "tolerance": SAME_ARITHMETIC["bfloat16"], "lse_max_abs_err": lse_err,
         "ms": median_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, True), KERNEL_RUNS),
-        "plain_ms": median_ms(lambda: fa.flash_attention_fwd_lse_plain(q, k, v, True),
+        "plain_ms": median_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, True),
                               PLAIN_RUNS),
         "bound_ms": max(fwd_flops / peak, fwd_bytes / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if fwd_flops / peak >= fwd_bytes / HBM_BYTES_PER_S else "bytes",
@@ -1240,15 +1242,15 @@ def drive_cluster(dev, counters) -> dict:
 
 def drive_attention_path(dev) -> dict:
     """Phase 4: the bit-matrix RS encode, then one yi-9b GQA layer and one
-    deepseek-v2-lite MLA layer at full width, their q/k/v through
-    ``ops.flash_attention`` against ``blockwise_attention``, and decode of
+    deepseek-v2-lite MLA layer at full width, their q/k/v through the
+    layers' ``attention`` against ``blockwise_attention``, and decode of
     the last position against the layer's last row."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
     from repro_torch.models.attention import (
-        gqa_apply, gqa_decode, gqa_init, mla_apply, mla_decode, mla_init)
+        attention, gqa_apply, gqa_decode, gqa_init, mla_apply, mla_decode, mla_init)
     from repro_torch.models.layers import apply_rope, dense_apply
 
     tol, same = OTHER_ROUNDING, SAME_ARITHMETIC["bfloat16"]
@@ -1271,9 +1273,9 @@ def drive_attention_path(dev) -> dict:
     q = apply_rope(dense_apply(p["wq"], x).reshape(b, s, h, hd), pos)
     k = apply_rope(dense_apply(p["wk"], x).reshape(b, s, hkv, hd), pos)
     v = dense_apply(p["wv"], x).reshape(b, s, hkv, hd)
-    flash = ops.flash_attention(q, k, v, causal=True, device=dev)
+    flash = attention(q, k, v)
     errors["gqa_flash_vs_plain"] = assert_close(
-        flash, flash_attention_fwd_plain(q, k, v, True), same, "yi-9b flash vs plain")
+        flash, flash_attention_fwd_plain(q, k, v, True)[0], same, "yi-9b flash vs plain")
     errors["gqa_flash_vs_blockwise"] = assert_close(
         flash, blockwise_plain(q, k, v, True, 512, 0), tol, "yi-9b flash vs blockwise")
     errors["gqa_layer_with_flash_vs_apply"] = assert_close(
@@ -1302,9 +1304,10 @@ def drive_attention_path(dev) -> dict:
     k = torch.cat([dense_apply(p["w_uk"], c_kv).reshape(b, s, h, nope),
                    k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
     v = dense_apply(p["w_uv"], c_kv).reshape(b, s, h, vh)
-    flash = ops.flash_attention(q, k, v, causal=True, device=dev)
+    flash = attention(q, k, v)
     errors["mla_flash_vs_plain"] = assert_close(
-        flash, flash_attention_fwd_plain(q, k, v, True), same, "deepseek-v2-lite flash vs plain")
+        flash, flash_attention_fwd_plain(q, k, v, True)[0], same,
+        "deepseek-v2-lite flash vs plain")
     errors["mla_flash_vs_blockwise"] = assert_close(
         flash, blockwise_plain(q, k, v, True, 512, 0), tol,
         "deepseek-v2-lite flash vs blockwise")
@@ -1577,7 +1580,7 @@ def fp32_compute():
 
 @contextlib.contextmanager
 def attention_entry(fn):
-    """``fn`` where ``ops.flash_attention`` calls the flash kernel."""
+    """``fn`` where the layers' attention route calls the flash kernel."""
     from repro_torch.kernels import flash_attention as fa
 
     saved = fa.flash_attention_fwd
@@ -2145,8 +2148,8 @@ def train_main_model(cfg, dev, counters, failures: list) -> dict:
     flash = counters["flash_attention_fwd"]
     # the train step's attention: the kernel pair where the route takes it
     # (bf16 on the card), else the plain loops, whose forward is blockwise_loss's
-    pair = attention.kernel_pair_takes(dev.type, (torch.bfloat16,) * 3, cfg.head_dim,
-                                       cfg.head_dim)
+    pair = attention.attention_route(dev.type, (torch.bfloat16,) * 3, cfg.head_dim,
+                                     cfg.head_dim, True, False) == "pair"
     t0 = time.perf_counter()
     params = init_params(cfg, seed=MODEL_SEED, device=dev)
     opt = init_opt_state(params)
@@ -2922,7 +2925,7 @@ def context_parallel_flash(dev, gen, case, flash, failures: list) -> dict:
     whole = fa.flash_attention_fwd(q, k, v, True)
     bitwise = bool(torch.equal(torch.cat(parts, dim=1), whole))
     tol = SAME_ARITHMETIC[dtype]
-    closes = [closeness(part, fa.flash_attention_fwd_plain(qb, k, v, True, off), tol)
+    closes = [closeness(part, fa.flash_attention_fwd_plain(qb, k, v, True, off)[0], tol)
               for part, (qb, off) in zip(parts, blocks)]
     del whole
     last, off = blocks[-1]
@@ -2949,7 +2952,8 @@ def context_parallel_flash(dev, gen, case, flash, failures: list) -> dict:
            "tolerance_share": max(c[1] for c in closes),
            "rel_rms_err": max(c[2] for c in closes), "tolerance": tol,
            "ms": median_ms(lambda: fa.flash_attention_fwd(last, k, v, True, off), CP_RUNS),
-           "plain_ms": median_ms(lambda: fa.flash_attention_fwd_plain(last, k, v, True, off), 1),
+           "plain_ms": median_ms(lambda: fa.flash_attention_fwd_plain(last, k, v, True, off)[0],
+                                 1),
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
            "bytes": nbytes}

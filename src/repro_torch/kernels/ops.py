@@ -2,10 +2,10 @@
 
 Same surface as the reference: GF(2^8) matmul / RS encode on byte
 streams, single and stripe-batched, the bit-matrix ("MXU") RS encode, the
-TriEC stream scaling, the batched XOR aggregation, the bulk capability
-verifier, and the flash attention dispatch.  Each op takes an explicit
-``device``: inputs (numpy arrays or tensors) move there and results stay
-there.  The default is ``"cuda"``, and asking for it without a GPU raises;
+TriEC stream scaling, the batched XOR aggregation and the bulk capability
+verifier (attention is routed by the layers: ``models.attention``).  Each
+op takes an explicit ``device``: inputs (numpy arrays or tensors) move
+there and results stay there.  The default is ``"cuda"``, and asking for it without a GPU raises;
 ``device="cpu"`` runs each kernel's plain PyTorch version.
 ``backend="ref"`` routes to the LUT oracles of
 :mod:`repro_torch.kernels.ref` instead of the kernels.  The verifier has
@@ -30,7 +30,6 @@ import torch
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import gf256
 from repro_torch.core.auth import MAC_ROUNDS
-from repro_torch.kernels import flash_attention as flash_attention_kernel
 from repro_torch.kernels import gf256_encode, ref, xor_reduce
 from repro_torch.trace.host import span
 
@@ -354,48 +353,3 @@ def bulk_verify(
     want = _sponge_mac(_words_on(caps_words, dev), _words_on(key, dev))
     return (want == _words_on(tags, dev)).all(dim=-1)
 
-
-# ---------------------------------------------------------------------------
-# Flash attention (CUDA forward kernel; blockwise path on the CPU).
-# ---------------------------------------------------------------------------
-
-
-def _float_on(x, device: torch.device) -> torch.Tensor:
-    """``x`` (numpy array or tensor) as a tensor on ``device``, dtype kept."""
-    if isinstance(x, torch.Tensor):
-        return _upload(x, device)
-    return _upload(torch.from_numpy(np.ascontiguousarray(x)), device)
-
-
-def flash_attention(
-    q,
-    k,
-    v,
-    causal: bool = True,
-    backend: str | None = None,
-    device: str | torch.device = DEFAULT_DEVICE,
-    block: int = 512,
-    q_offset: int = 0,
-) -> torch.Tensor:
-    """Self-attention of q rows at positions ``q_offset + i`` (a
-    context-parallel rank's slice) against all of k/v, routed by one rule
-    decided before the call: the
-    hand-written kernel (the counterpart of the reference's "Pallas on TPU")
-    when the operands are on a CUDA device and none needs a gradient, or
-    with ``backend="kernel"`` (on CPU tensors, its plain version); else the
-    differentiable ``blockwise_attention(q, k, v, causal, block, q_offset)``
-    (which on the card trains on the flash forward and its backward kernel
-    where ``models.attention.kernel_pair_takes``).  The flash kernel itself
-    is forward only, as the TPU kernel is: asked for by name, it raises
-    when q, k or v needs a gradient.  It ignores ``block``: it walks
-    its own KV tiles.  A kernel that fails to build or launch raises."""
-    if backend not in (None, "kernel"):
-        raise ValueError(f"unknown backend {backend!r}")
-    dev = resolve_device(device)
-    q, k, v = (_float_on(x, dev) for x in (q, k, v))
-    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if backend == "kernel" or (dev.type == "cuda" and not needs_grad):
-        return flash_attention_kernel.flash_attention_fwd(q, k, v, causal, q_offset)
-    from repro_torch.models.attention import blockwise_attention
-
-    return blockwise_attention(q, k, v, causal, block, q_offset)

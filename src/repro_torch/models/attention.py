@@ -4,19 +4,19 @@ attention, and KV-cache decode (PyTorch port of ``repro.models.attention``).
 Training attention is *blockwise*: an online-softmax loop over KV blocks,
 so the (S, S) score matrix is never materialized, and a backward pass
 (:class:`_BlockwiseAttention`) that recomputes block scores instead of
-storing per-block residuals (O(S) memory).  On the card, a call on bf16
-q, k, v of head dims the backward kernel takes runs on the hand-written
-kernel pair (``kernels.flash_attention``: the flash
-forward writing each row's log-sum-exp, and the fused backward), both
-directions; every other call runs the plain loops here
-(:func:`kernel_pair_takes` decides, once, before the call).
+storing per-block residuals (O(S) memory).
 
-The layers' self-attention goes through
-:func:`repro_torch.kernels.ops.flash_attention`, the one dispatch point:
-the hand-written flash kernel when q, k and v are CUDA tensors and none
-needs a gradient, ``blockwise_attention`` everywhere else (the CPU,
-autograd).  Cross-attention (``kv_in``) runs blockwise.  A kernel that
-fails to build or launch raises; nothing falls back.
+The layers' attention goes through :func:`attention`, whose route
+:func:`attention_route` decides once, before the call, from what the call
+shows: the hand-written forward kernel (``kernels.flash_attention``) for
+self-attention on CUDA tensors none of which needs a gradient; the
+hand-written kernel pair (the flash forward writing each row's
+log-sum-exp, and the fused backward), both directions, for any other call
+on bf16 CUDA tensors of head dims the backward kernel takes; the plain
+loops (``kernels.flash_attention``'s plain versions at the layer's block)
+everywhere else.  Cross-attention (``kv_in``) never takes the forward-only
+kernel.  A kernel that fails to build or launch, or refuses its operands,
+raises; nothing falls back.
 
 On a mesh (the sharded step, :mod:`repro_torch.parallel.spmd`) each model
 rank holds a slice of the sequence.  The reference's hints take effect as
@@ -48,7 +48,7 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.models.layers import (
     Params,
     Yarn,
@@ -59,8 +59,6 @@ from repro_torch.models.layers import (
     rmsnorm_init,
 )
 from repro_torch.parallel import spmd
-
-NEG_INF = -1e30
 
 #: ``_BlockwiseAttention`` calls (forwards) that took the plain loops, by
 #: device type: on the card, the share of training attention that did not
@@ -91,145 +89,48 @@ def gqa_init(
     }
 
 
-def _group_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
-    """(B, S, H, D) -> (B, S, Hkv, rep, D): grouped heads, no KV repeat."""
-    b, s, h, d = q.shape
-    return q.reshape(b, s, hkv, h // hkv, d)
-
-
 def _scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
     """``x * scale`` in x's dtype, the scale rounded to that dtype first (as
     JAX treats a weakly typed Python scalar)."""
     return x * torch.tensor(scale, dtype=x.dtype, device=x.device)
 
 
-def _causal_mask(start: int, width: int, sq: int, q_offset: int, device) -> torch.Tensor:
-    """(Sq, width) bool: key position start + j is visible to query row i."""
-    q_pos = q_offset + torch.arange(sq, device=device)
-    kv_pos = start + torch.arange(width, device=device)
-    return kv_pos[None, :] <= q_pos[:, None]
-
-
-def _product_f32(qg, kc):
-    """Scores (B, Sq, Hkv, R, Sk) in fp32 of qg (B, Sq, Hkv, R, D) and kc
-    (B, Sk, Hkv, D) taken in their own dtype: on the card, a bf16 pair as
-    the tensor cores take it (bf16 products, fp32 sums), which is how the
-    flash kernel's wgmma rounds; otherwise exact products summed in fp32."""
-    if qg.dtype == torch.bfloat16 and qg.is_cuda:
-        b, sq, g, r, d = qg.shape
-        a = qg.permute(0, 2, 3, 1, 4).reshape(b * g, r * sq, d)
-        bt = kc.permute(0, 2, 3, 1).reshape(b * g, d, kc.shape[1])
-        out = torch.bmm(a, bt, out_dtype=torch.float32)
-        return out.reshape(b, g, r, sq, -1).permute(0, 3, 1, 2, 4)
-    return torch.einsum("bqgrd,bkgd->bqgrk", qg.float(), kc.float())
-
-
-def _flash_fwd_scan(qg, k, v, causal, block, q_offset, scale=None):
-    """Online-softmax forward over KV blocks with grouped GQA heads.
-
-    qg: (B, Sq, Hkv, R, D) pre-scaled, or, given ``scale``, unscaled, the
-    scale then multiplying each fp32 score (see ``_product_f32``); k/v:
-    (B, Skv, Hkv, D[v]).  A Python
-    loop over blocks takes the place of ``lax.scan``; the last block is
-    sliced short instead of padded (padded keys add exactly 0).  With a
-    causal mask, the query rows that see none of a block skip it (it would
-    add exactly 0 to them), and the loop ends once no row sees a block.
-    Returns (out f32 (B,Sq,Hkv,R,Dv), lse (B,Sq,Hkv,R)).
-    """
-    b, sq, hkv, rep, _ = qg.shape
-    dv = v.shape[-1]
-    q32 = qg.float()
-    acc = torch.zeros((b, sq, hkv, rep, dv), dtype=torch.float32, device=qg.device)
-    m = torch.full((b, sq, hkv, rep), NEG_INF, dtype=torch.float32, device=qg.device)
-    l = torch.zeros((b, sq, hkv, rep), dtype=torch.float32, device=qg.device)
-    for start in range(0, k.shape[1], block):
-        # query row i sees key start only if start <= q_offset + i
-        rows = min(max(start - q_offset, 0), sq) if causal else 0
-        if rows == sq:
-            break
-        kc = k[:, start:start + block]
-        vc = v[:, start:start + block]
-        if scale is None:
-            scores = torch.einsum("bqgrd,bkgd->bqgrk", q32[:, rows:], kc.float())
-        else:
-            scores = _product_f32(qg[:, rows:], kc) * scale
-        if causal:
-            mask = _causal_mask(start, kc.shape[1], sq - rows, q_offset + rows, qg.device)
-            scores = scores.masked_fill(~mask[None, :, None, None, :], NEG_INF)
-        m_new = torch.maximum(m[:, rows:], scores.amax(dim=-1))
-        p = torch.exp(scores - m_new[..., None])
-        alpha = torch.exp(m[:, rows:] - m_new)
-        l_new = l[:, rows:] * alpha + p.sum(dim=-1)
-        acc_new = acc[:, rows:] * alpha[..., None] + torch.einsum(
-            "bqgrk,bkgd->bqgrd", p.to(vc.dtype).float(), vc.float()
-        )
-        # out of place, so autograd through the loop stays valid
-        if rows:
-            m_new = torch.cat([m[:, :rows], m_new], dim=1)
-            l_new = torch.cat([l[:, :rows], l_new], dim=1)
-            acc_new = torch.cat([acc[:, :rows], acc_new], dim=1)
-        m, l, acc = m_new, l_new, acc_new
-    l = torch.clamp_min(l, 1e-30)
-    return acc / l[..., None], m + torch.log(l)
-
-
 def _bw_attention_fwd_impl(q, k, v, causal, block, q_offset):
+    """The plain loops' forward: ``fa._flash_fwd_scan`` over KV blocks of
+    ``block`` keys, q scaled in q's dtype.  Returns (out, lse in the
+    kernels' layout, which the plain backward takes)."""
     b, sq, h, d = q.shape
-    hkv = k.shape[2]
     block = min(block, k.shape[1])
-    qg = _group_q(_scaled(q, 1.0 / math.sqrt(d)), hkv)
-    out, lse = _flash_fwd_scan(qg, k, v, causal, block, q_offset)
-    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype), lse
+    qg = fa._group_q(_scaled(q, 1.0 / math.sqrt(d)), k.shape[2])
+    out, lse = fa._flash_fwd_scan(qg, k, v, causal, block, q_offset)
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype), fa._to_kernel_lse(
+        lse.reshape(b, sq, h))
 
 
-def _row_dot(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """The softmax backward's correction term, ``rowsum(dout * out)``."""
-    return (out * dout).sum(dim=-1)
+def attention_route(device_type: str, dtypes, d: int, dv: int, needs_grad: bool,
+                    cross: bool) -> str:
+    """The route of an attention call, from what it shows: its operands'
+    device type and dtypes, the head dims (D, Dv), whether autograd needs a
+    gradient through it, and whether it is cross-attention (or asks for
+    blockwise attention by name, :func:`blockwise_attention`).
 
-
-def _attention_bwd_plain(q, k, v, out, dout, lse, causal, block, q_offset):
-    """The backward of blockwise attention in plain PyTorch, from (q, k, v,
-    out, lse (B, Sq, Hkv, R)): block scores recomputed in fp32 over KV blocks
-    of ``block`` keys, P and dS in fp32.  Returns (dq, dk, dv) in the
-    operands' dtypes.  The plain version of ``kernels/csrc/flash_attention_bwd.cu``."""
-    b, sq, h, d = q.shape
-    hkv = k.shape[2]
-    block = min(block, k.shape[1])
-    scale = 1.0 / math.sqrt(d)
-    qg = _group_q(q, hkv).float() * scale
-    og = _group_q(out, hkv).float()
-    dog = _group_q(dout, hkv).float()
-    delta = _row_dot(og, dog)                       # D_i = rowsum(dout * out)
-    dq = torch.zeros_like(qg)
-    dks, dvs = [], []
-    for start in range(0, k.shape[1], block):
-        kc32 = k[:, start:start + block].float()
-        vc32 = v[:, start:start + block].float()
-        scores = torch.einsum("bqgrd,bkgd->bqgrk", qg, kc32)
-        p = torch.exp(scores - lse[..., None])
-        if causal:
-            mask = _causal_mask(start, kc32.shape[1], sq, q_offset, q.device)
-            p = p.masked_fill(~mask[None, :, None, None, :], 0.0)
-        dvs.append(torch.einsum("bqgrk,bqgrd->bkgd", p, dog))
-        dp = torch.einsum("bqgrd,bkgd->bqgrk", dog, vc32)
-        ds = p * (dp - delta[..., None])            # (B,Sq,Hkv,R,block)
-        # scores = (q*scale)@k  =>  dq = scale * ds@k;  dk = ds^T @ (q*scale)
-        dq += torch.einsum("bqgrk,bkgd->bqgrd", ds, kc32) * scale
-        dks.append(torch.einsum("bqgrk,bqgrd->bkgd", ds, qg))
-    return (
-        dq.reshape(b, sq, h, d).to(q.dtype),
-        torch.cat(dks, dim=1).to(k.dtype),
-        torch.cat(dvs, dim=1).to(v.dtype),
-    )
-
-
-def kernel_pair_takes(device_type: str, dtypes, d: int, dv: int) -> bool:
-    """The route of a ``_BlockwiseAttention`` call, from what its operands
-    show: the kernel pair for CUDA tensors, q, k and v all bf16, of head
-    dims the backward kernel takes (``fa.BWD_HEAD_DIMS``); the plain loops
-    for everything else (the CPU, fp32, other widths)."""
-    return (device_type == "cuda" and all(t == torch.bfloat16 for t in dtypes)
-            and (d, dv) in fa.BWD_HEAD_DIMS)
+    * ``"flash"``: self-attention on CUDA tensors, no gradient needed: the
+      forward kernel ``fa.flash_attention_fwd``, which takes bf16 or fp32
+      of ``fa.HEAD_DIMS`` and raises on anything else;
+    * ``"pair"``: any other call on CUDA tensors, q, k and v all bf16, of
+      head dims ``fa.BWD_HEAD_DIMS``: ``_BlockwiseAttention`` on the kernel
+      pair, both directions, with a gradient or without;
+    * ``"plain"``: everything else (the CPU; fp32 or other dims with a
+      gradient; cross-attention off the pair): ``_BlockwiseAttention`` on
+      the plain loops at the call's block.
+    """
+    if device_type != "cuda":
+        return "plain"
+    if not (needs_grad or cross):
+        return "flash"
+    if all(t == torch.bfloat16 for t in dtypes) and (d, dv) in fa.BWD_HEAD_DIMS:
+        return "pair"
+    return "plain"
 
 
 class _BlockwiseAttention(torch.autograd.Function):
@@ -255,26 +156,39 @@ class _BlockwiseAttention(torch.autograd.Function):
         if ctx.kernels:
             grads = fa.flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal, ctx.q_offset)
         else:
-            grads = _attention_bwd_plain(q, k, v, out, dout, lse, ctx.causal, ctx.block,
-                                         ctx.q_offset)
+            grads = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, ctx.causal,
+                                                 ctx.q_offset, ctx.block)
         return (*grads, None, None, None, None)
 
 
-def blockwise_attention(
+def attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, Skv, Hkv, D)
     v: torch.Tensor,  # (B, Skv, Hkv, Dv)
     causal: bool = True,
     block: int = 512,
     q_offset: int = 0,
+    cross: bool = False,
 ) -> torch.Tensor:
-    """Flash attention in plain PyTorch: online softmax over KV blocks,
-    grouped GQA heads (no KV head repeat), and a backward that recomputes
-    block scores instead of storing per-block residuals (O(S) memory); on
-    the card, trained on the kernel pair where :func:`kernel_pair_takes`."""
-    kernels = kernel_pair_takes(q.device.type, (q.dtype, k.dtype, v.dtype), q.shape[-1],
-                                v.shape[-1])
-    return _BlockwiseAttention.apply(q, k, v, causal, block, q_offset, kernels)
+    """The layers' attention: q rows at positions ``q_offset + i`` against
+    all of k/v, grouped GQA heads (no KV head repeat), on the route
+    :func:`attention_route` decides.  ``block`` is the plain loops' KV
+    block; the kernels walk their own tiles."""
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    route = attention_route(q.device.type, (q.dtype, k.dtype, v.dtype), q.shape[-1],
+                            v.shape[-1], needs_grad, cross)
+    if route == "flash":
+        return fa.flash_attention_fwd(q, k, v, causal, q_offset)
+    return _BlockwiseAttention.apply(q, k, v, causal, block, q_offset, route == "pair")
+
+
+def blockwise_attention(q, k, v, causal=True, block=512, q_offset=0):
+    """Flash attention in plain PyTorch: online softmax over KV blocks and a
+    backward that recomputes block scores instead of storing per-block
+    residuals (O(S) memory); routed as cross-attention is, so never on the
+    forward-only kernel (on the card, on the kernel pair where
+    :func:`attention_route` takes it)."""
+    return attention(q, k, v, causal, block, q_offset, cross=True)
 
 
 def _blockwise_attention_autodiff(q, k, v, causal=True, block=512, q_offset=0):
@@ -320,10 +234,9 @@ def gqa_apply(
     if kv_spec is not None:
         k, v = kv_spec.ctx.gather_seq(k), kv_spec.ctx.gather_seq(v)
     if kv_in is None:
-        out = ops.flash_attention(q, k, v, causal, device=q.device, block=block,
-                                  q_offset=offset)
+        out = attention(q, k, v, causal, block, offset)
     else:
-        out = blockwise_attention(q, k, v, False, block, 0)
+        out = attention(q, k, v, False, block, 0, cross=True)
     return dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
 
 
@@ -530,7 +443,7 @@ def mla_apply(
     qq = _yarn_scaled(torch.cat([q_nope, q_rope], dim=-1), yarn)
     if kv_spec is not None:
         k, v = kv_spec.ctx.gather_seq(k), kv_spec.ctx.gather_seq(v)
-    out = ops.flash_attention(qq, k, v, True, device=qq.device, block=block, q_offset=offset)
+    out = attention(qq, k, v, True, block, offset)
     return dense_apply(p["wo"], out.reshape(b, s, n_heads * v_head))
 
 

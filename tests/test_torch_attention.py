@@ -33,7 +33,6 @@ from repro.kernels.flash_attention import flash_attention_fwd as jx_flash_fwd
 from repro.models import attention as jx_attn
 from repro.models import layers as jx_layers
 from repro_torch.kernels import flash_attention as pt_flash
-from repro_torch.kernels import ops as pt_ops
 from repro_torch.models import attention as pt_attn
 from repro_torch.models import layers as pt_layers
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
@@ -422,7 +421,7 @@ def test_mla_decode_consistent_with_prefill():
     _close(torch.cat(outs, dim=1), full, 0.1)
 
 
-# -- the flash kernel's plain version and ops.flash_attention -----------------------------
+# -- the flash kernel's plain version and the layers' attention ----------------------------
 
 
 @pytest.mark.parametrize("b,s,h,hkv,d,causal,bq,bk", [
@@ -433,7 +432,7 @@ def test_mla_decode_consistent_with_prefill():
 def test_flash_plain_matches_reference_pallas_kernel(b, s, h, hkv, d, causal, bq, bk):
     q, k, v = _qkv(hkv * bq, b, s, h, hkv, d)
     want = jx_flash_fwd(*map(jnp.asarray, (q, k, v)), causal=causal, bq=bq, bk=bk)
-    got = pt_flash.flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)), causal)
+    got = pt_flash.flash_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)), causal)[0]
     _close(got, want, 3e-4)
 
 
@@ -447,12 +446,12 @@ def test_flash_plain_tile_walks_match_reference_pallas_kernel(b, s, h, hkv, caus
     64-key tiles, through the wrapper's plain version) and the bf16 body's
     (scores scaled after the product, 128-key tiles; fp32 inputs, so the
     check isolates the walk from bf16 rounding)."""
-    from repro_torch.models.attention import _flash_fwd_scan, _group_q
+    from repro_torch.kernels.flash_attention import _flash_fwd_scan, _group_q
 
     q, k, v = _qkv(s + h, b, s, h, hkv, 16)
     want = jx_flash_fwd(*map(jnp.asarray, (q, k, v)), causal=causal, bq=64, bk=128)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
-    _close(pt_flash.flash_attention_fwd_plain(tq, tk, tv, causal), want, 3e-4)
+    _close(pt_flash.flash_attention_fwd_plain(tq, tk, tv, causal)[0], want, 3e-4)
     out, _ = _flash_fwd_scan(_group_q(tq, hkv), tk, tv, causal, pt_flash.KV_TILE, 0, 0.25)
     _close(out.reshape(b, s, h, 16), want, 3e-4)
 
@@ -462,10 +461,10 @@ def test_flash_kv_tile_follows_the_kernel_body():
     assert pt_flash.kv_tile(torch.bfloat16) == pt_flash.KV_TILE == 128
     assert pt_flash.kv_tile(torch.float32) == pt_flash.FP32_KV_TILE == 64
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(36, 1, 200, 4, 2, 64))
-    from repro_torch.models.attention import _flash_fwd_scan, _group_q
+    from repro_torch.kernels.flash_attention import _flash_fwd_scan, _group_q
 
     out, _ = _flash_fwd_scan(_group_q(q, 2), k, v, True, 128, 0, 1 / 8)
-    assert torch.equal(pt_flash.flash_attention_fwd_plain(q, k, v, True),
+    assert torch.equal(pt_flash.flash_attention_fwd_plain(q, k, v, True)[0],
                        out.reshape(1, 200, 4, 64).to(torch.bfloat16))
 
 
@@ -499,19 +498,20 @@ def test_flash_wrapper_on_cpu_tensors_matches_reference_pallas_kernel():
     version; ragged S = 40 against the reference's 16-row tiles."""
     q, k, v = _qkv(31, 1, 40, 4, 2, 64)
     want = jx_flash_fwd(*map(jnp.asarray, (q, k, v)), causal=True, bq=16, bk=16)
-    got = pt_ops.flash_attention(q, k, v, causal=True, backend="kernel", device=CPU)
+    got = pt_flash.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)), True)
     _close(got, want, 3e-4)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", BF16_LAYER)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_ops_flash_attention_on_cpu_matches_reference(dtype, tol, causal):
-    """backend=None off the accelerator: blockwise attention in both packages."""
+    """The layers' attention off the accelerator (the port's route, the
+    reference's ops dispatch): blockwise attention in both packages."""
     arrays = _qkv(32, 2, 40, 4, 2, 16)
     jx = [jnp.asarray(x).astype(dtype) for x in arrays]
     pt = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in arrays]
     want = jx_ops.flash_attention(*jx, causal=causal)
-    got = pt_ops.flash_attention(*pt, causal=causal, device=CPU)
+    got = pt_attn.attention(*pt, causal)
     assert got.dtype == pt[0].dtype
     _close(got, want, tol)
 
@@ -529,9 +529,6 @@ def test_flash_row_blocks_with_offsets_equal_the_unsplit_call(dtype, d):
     parts = [pt_flash.flash_attention_fwd(q[:, i:i + 32], k, v, True, i)
              for i in range(0, 128, 32)]
     assert torch.equal(torch.cat(parts, dim=1), whole)
-    via_ops = [pt_ops.flash_attention(q[:, i:i + 32], k, v, True, backend="kernel", device=CPU,
-                                      q_offset=i) for i in range(0, 128, 32)]
-    assert torch.equal(torch.cat(via_ops, dim=1), whole)
 
 
 @pytest.mark.parametrize("sq,skv,q_offset", [(32, 128, 96), (40, 100, 60), (16, 64, 0), (7, 90, 50)])
@@ -571,38 +568,51 @@ def test_flash_wrapper_is_forward_only(needs_grad):
     qkv[needs_grad].requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         pt_flash.flash_attention_fwd(*qkv)
-    with pytest.raises(RuntimeError, match="no backward"):
-        pt_ops.flash_attention(*qkv, backend="kernel", device=CPU)
     with torch.no_grad():
         got = pt_flash.flash_attention_fwd(*qkv)
-    want = pt_flash.flash_attention_fwd_plain(*(t.detach() for t in qkv))
+    want = pt_flash.flash_attention_fwd_plain(*(t.detach() for t in qkv))[0]
     assert torch.equal(got, want)
 
 
 # -- the training kernel pair: its route, and its plain versions on the CPU ----------------
 
 
-@pytest.mark.parametrize("device,dtypes,d,dv,takes", [
-    ("cuda", ("bfloat16",) * 3, 128, 128, True),      # yi's train_4k attention
-    ("cpu", ("bfloat16",) * 3, 128, 128, False),
-    ("meta", ("bfloat16",) * 3, 128, 128, False),
-    ("cuda", ("float32",) * 3, 128, 128, False),
-    ("cuda", ("bfloat16", "float32", "bfloat16"), 128, 128, False),
-    ("cuda", ("bfloat16",) * 3, 192, 128, True),      # MLA
-    ("cpu", ("bfloat16",) * 3, 192, 128, False),
-    ("cuda", ("float32",) * 3, 192, 128, False),
-    ("cuda", ("bfloat16",) * 3, 160, 160, False),     # zamba2's shared block
-    ("cuda", ("bfloat16",) * 3, 64, 64, False),       # whisper
-    ("cuda", ("bfloat16",) * 3, 192, 64, False),
-    ("cuda", ("bfloat16",) * 3, 128, 192, False),
-    ("cuda", ("float16",) * 3, 128, 128, False),
+@pytest.mark.parametrize("device,dtypes,d,dv,grad,cross,route", [
+    # training self-attention, a gradient needed: the pair or the plain loops
+    ("cuda", ("bfloat16",) * 3, 128, 128, True, False, "pair"),      # yi's train_4k
+    ("cpu", ("bfloat16",) * 3, 128, 128, True, False, "plain"),
+    ("meta", ("bfloat16",) * 3, 128, 128, True, False, "plain"),
+    ("cuda", ("float32",) * 3, 128, 128, True, False, "plain"),
+    ("cuda", ("bfloat16", "float32", "bfloat16"), 128, 128, True, False, "plain"),
+    ("cuda", ("bfloat16",) * 3, 192, 128, True, False, "pair"),      # MLA
+    ("cpu", ("bfloat16",) * 3, 192, 128, True, False, "plain"),
+    ("cuda", ("float32",) * 3, 192, 128, True, False, "plain"),
+    ("cuda", ("bfloat16",) * 3, 160, 160, True, False, "plain"),     # zamba2's shared block
+    ("cuda", ("bfloat16",) * 3, 64, 64, True, False, "plain"),       # whisper
+    ("cuda", ("bfloat16",) * 3, 192, 64, True, False, "plain"),
+    ("cuda", ("bfloat16",) * 3, 128, 192, True, False, "plain"),
+    ("cuda", ("float16",) * 3, 128, 128, True, False, "plain"),
+    # self-attention with no gradient needed: the forward kernel on the card
+    ("cuda", ("bfloat16",) * 3, 128, 128, False, False, "flash"),
+    ("cuda", ("float32",) * 3, 64, 64, False, False, "flash"),
+    ("cuda", ("bfloat16",) * 3, 160, 160, False, False, "flash"),
+    ("cpu", ("bfloat16",) * 3, 128, 128, False, False, "plain"),
+    # cross-attention (and blockwise_attention by name): never the forward kernel
+    ("cuda", ("bfloat16",) * 3, 128, 128, False, True, "pair"),
+    ("cuda", ("bfloat16",) * 3, 192, 128, True, True, "pair"),
+    ("cuda", ("bfloat16",) * 3, 64, 64, False, True, "plain"),       # whisper's decoder
+    ("cuda", ("bfloat16",) * 3, 64, 64, True, True, "plain"),
+    ("cuda", ("float32",) * 3, 128, 128, False, True, "plain"),
+    ("cpu", ("bfloat16",) * 3, 128, 128, False, True, "plain"),
 ])
-def test_kernel_pair_route(device, dtypes, d, dv, takes):
-    """Which calls of blockwise attention run on the kernel pair: on the
-    card, bf16 q, k and v, head dims the backward takes; with a gradient
-    or without, both directions of a call on one route."""
+def test_kernel_pair_route(device, dtypes, d, dv, grad, cross, route):
+    """The route of an attention call, from its device, dtypes, head dims,
+    whether it needs a gradient and whether it is cross-attention: the
+    forward kernel for self-attention on the card with no gradient; the
+    kernel pair, both directions, for any other call on the card on bf16 q,
+    k and v of head dims the backward takes; the plain loops for the rest."""
     dtypes = tuple(getattr(torch, name) for name in dtypes)
-    assert pt_attn.kernel_pair_takes(device, dtypes, d, dv) is takes
+    assert pt_attn.attention_route(device, dtypes, d, dv, grad, cross) == route
 
 
 @pytest.mark.parametrize("grad", [False, True])
@@ -748,9 +758,3 @@ def test_kernel_pair_forward_refuses_autograd():
 @pytest.mark.parametrize("sq,rows", [(1, 64), (63, 64), (64, 64), (65, 128), (4096, 4096)])
 def test_lse_rows_pad_to_the_kernels_tiles(sq, rows):
     assert pt_flash.lse_rows(sq) == rows
-
-
-def test_ops_flash_attention_rejects_an_unknown_backend():
-    q, k, v = _qkv(34, 1, 8, 2, 2, 64)
-    with pytest.raises(ValueError, match="unknown backend"):
-        pt_ops.flash_attention(q, k, v, backend="pallas", device=CPU)

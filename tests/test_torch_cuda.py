@@ -393,7 +393,7 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dv, s, causal, dtype):
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == before + 1
     assert got.dtype == dtype and got.shape == (2, s, 4, dv)
-    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal), dtype)
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal)[0], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -406,7 +406,7 @@ def test_flash_attention_reads_strided_layouts(cuda, dtype):
     assert not q.is_contiguous()
     got = fa.flash_attention_fwd(q, k, v, True)
     _assert_close(got, fa.flash_attention_fwd_plain(q.contiguous(), k.contiguous(),
-                                                    v.contiguous(), True), dtype)
+                                                    v.contiguous(), True)[0], dtype)
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
@@ -418,7 +418,7 @@ def test_flash_attention_gqa_groups(cuda, rep, causal, dtype):
     rng = np.random.default_rng(100 + rep)
     q, k, v = _qkv(rng, 2, 300, 2 * rep, 2, 128, 128, dtype, cuda)
     got = fa.flash_attention_fwd(q, k, v, causal)
-    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal), dtype)
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal)[0], dtype)
 
 
 @pytest.mark.parametrize("sq,skv,q_offset", [(128, 512, 384), (100, 300, 200), (64, 256, 64),
@@ -438,7 +438,7 @@ def test_flash_attention_query_offset_matches_plain(cuda, sq, skv, q_offset, cau
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.offset_launches == before + (q_offset > 0)
     assert got.shape == (2, sq, 4, 128)
-    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal, q_offset), dtype)
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, causal, q_offset)[0], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -470,22 +470,7 @@ def test_flash_attention_copies_operands_tma_cannot_read(cuda, case):
     assert fa.needs_copy(k2) and not fa.needs_copy(k)
     got = fa.flash_attention_fwd(q, k2, v, True)
     assert torch.equal(got, fa.flash_attention_fwd(q, k, v, True))
-    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, True), torch.bfloat16)
-
-
-def test_ops_flash_attention_on_card_launches_the_kernel(cuda):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(12)
-    q, k, v = (t.numpy() for t in _qkv(rng, 1, 130, 4, 4, 64, 64, torch.float32, "cpu"))
-    before = fa.flash_attention_fwd.launches
-    got = ops.flash_attention(q, k, v, device=cuda)
-    assert fa.flash_attention_fwd.launches == before + 1
-    on_card = [torch.from_numpy(x).to(cuda) for x in (q, k, v)]
-    _assert_close(got, fa.flash_attention_fwd_plain(*on_card, True), torch.float32)
-    # across devices, the reference's elementwise bound: the host CPU's fp32
-    # products need not round as the card's do
-    want = ops.flash_attention(q, k, v, backend="kernel", device="cpu")
-    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)
+    _assert_close(got, fa.flash_attention_fwd_plain(q, k, v, True)[0], torch.bfloat16)
 
 
 def test_flash_attention_is_forward_only_on_card(cuda):
@@ -494,17 +479,24 @@ def test_flash_attention_is_forward_only_on_card(cuda):
     before = fa.flash_attention_fwd.launches
     with pytest.raises(RuntimeError, match="no backward"):
         fa.flash_attention_fwd(q.requires_grad_(), k, v)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q, k, v, backend="kernel", device=cuda)
-    # a gradient routes the dispatch to the differentiable blockwise path
-    out = ops.flash_attention(q, k, v, device=cuda)
+    # a gradient routes the layers' attention to the differentiable blockwise path
+    out = pt_attn.attention(q, k, v)
     assert out.requires_grad
     assert torch.equal(out.detach(), blockwise_attention(q.detach(), k, v, True, 512, 0))
     assert fa.flash_attention_fwd.launches == before
     with torch.no_grad():
-        got = ops.flash_attention(q, k, v, device=cuda)
+        got = pt_attn.attention(q, k, v)
     assert fa.flash_attention_fwd.launches == before + 1
-    _assert_close(got, fa.flash_attention_fwd_plain(q.detach(), k, v, True), torch.bfloat16)
+    _assert_close(got, fa.flash_attention_fwd_plain(q.detach(), k, v, True)[0], torch.bfloat16)
+    # the fp32 body against the CPU's plain version: across devices, the
+    # reference's elementwise bound (the host CPU's fp32 products need not
+    # round as the card's do)
+    q32, k32, v32 = (t.detach().float() for t in (q, k, v))
+    with torch.no_grad():
+        got = pt_attn.attention(q32, k32, v32)
+    assert fa.flash_attention_fwd.launches == before + 2
+    want = fa.flash_attention_fwd(q32.cpu(), k32.cpu(), v32.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)
 
 
 def test_flash_attention_refuses_operands_the_kernel_does_not_take(cuda):
@@ -590,7 +582,7 @@ def _check_pair(q, k, v, dout, causal, q_offset=0):
     assert (fa.flash_attention_fwd_lse.launches, fa.flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(out, fa.flash_attention_fwd(q, k, v, causal, q_offset))
-    out_plain, lse_plain = fa.flash_attention_fwd_lse_plain(q, k, v, causal, q_offset)
+    out_plain, lse_plain = fa.flash_attention_fwd_plain(q, k, v, causal, q_offset)
     _assert_close(out, out_plain, torch.bfloat16)
     torch.testing.assert_close(lse, lse_plain, rtol=PAIR_LSE_TOL, atol=PAIR_LSE_TOL)
     want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, q_offset)
@@ -808,7 +800,7 @@ def test_mla_layer_trains_on_the_kernel_pair(cuda, monkeypatch):
     for g, ref, ref32, zero in zip(got, want, want32, zeros, strict=True):
         _assert_pair_close(g, ref, ref32, zero)
 
-    monkeypatch.setattr(pt_attn, "kernel_pair_takes", lambda *args: False)
+    monkeypatch.setattr(pt_attn, "attention_route", lambda *args: "plain")
     plain = layer_grads()
     monkeypatch.setattr(layers.dense_apply, "__defaults__", (torch.float32,))
     exact = layer_grads()

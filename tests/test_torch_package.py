@@ -7,7 +7,7 @@
     reference's anchor tests of the simulator and the policy presets pass
     on the copies;
 (d) without a GPU, the entry points (the data plane's, ``ops.rs_encode_mxu``,
-    ``ops.flash_attention``, the layers' tensor makers ``rope_freqs``,
+    the layers' tensor makers ``rope_freqs``,
     ``rmsnorm_init``, ``layernorm_init``, the model's ``init_params`` and
     ``init_cache``, serving through ``launch.serve``, the training data
     pipeline and ``launch.train``) raise unless asked for the CPU, and never
@@ -160,6 +160,21 @@ def test_ast_scan_covers_the_model_stack_and_the_serving_path():
         "configs/base.py", "configs/registry.py"} <= scanned
 
 
+@pytest.mark.parametrize("path", sorted((PORT / "kernels").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernels_import_no_layer_above_them(path):
+    """The kernels package sits under the models: a module of it that
+    imported ``repro_torch.models``, even inside a function, would make
+    the two a cycle."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    above = [f"{node.module}.{alias.name}" for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) and node.module == "repro_torch"
+             for alias in node.names]
+    bad = [name for name in [*_imported_modules(path), *above]
+           if name.split(".")[:2] == ["repro_torch", "models"]]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 @pytest.mark.parametrize("package", sorted(SHARDING_EXPORTS))
 def test_init_exports_the_sharding_plane(package):
     import importlib
@@ -263,11 +278,6 @@ def test_entry_points_without_gpu_raise_unless_asked_for_cpu(no_gpu, plain_forbi
         StorageCluster(8, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.rs_encode_mxu(data[0], 3, 2)
-    qkv = [np.zeros((1, 8, 2, 64), np.float32)] * 3
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ops.flash_attention(*qkv)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ops.flash_attention(*qkv, backend="kernel")
     for make in (layers.rope_freqs, layers.rmsnorm_init, layers.layernorm_init):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(64)
@@ -317,6 +327,8 @@ def test_numpy_backend_stays_selectable_without_gpu(no_gpu):
 def test_cpu_path_never_builds_a_kernel(monkeypatch):
     from repro_torch.core.erasure import RSCode, stream_encode
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
 
     def refuse(*args, **kwargs):
         raise AssertionError("the CPU path tried to build a CUDA kernel")
@@ -331,10 +343,10 @@ def test_cpu_path_never_builds_a_kernel(monkeypatch):
                           parity[0])
     assert ops.xor_reduce_bytes(data[0], device="cpu").shape == (99,)
     assert np.array_equal(ops.rs_encode_mxu(data[0], 3, 2, device="cpu").numpy(), parity[0])
-    qkv = [np.random.default_rng(i).standard_normal((1, 8, 2, 64)).astype(np.float32)
+    qkv = [torch.from_numpy(np.random.default_rng(i).standard_normal((1, 8, 2, 64))).float()
            for i in range(3)]
-    assert ops.flash_attention(*qkv, device="cpu").shape == (1, 8, 2, 64)
-    assert ops.flash_attention(*qkv, backend="kernel", device="cpu").shape == (1, 8, 2, 64)
+    assert attention.attention(*qkv).shape == (1, 8, 2, 64)
+    assert fa.flash_attention_fwd(*qkv).shape == (1, 8, 2, 64)
 
 
 # -- the reference's anchor tests, on the copies ------------------------------------------
