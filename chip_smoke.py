@@ -17,7 +17,7 @@ deepseek-v2-lite (arXiv:2405.04434), whisper-base (arXiv:2212.04356) and
 zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
 (``src/repro_torch/configs/registry.py``, a copy of the reference's).
 
-1. Prints the card's name and power limit, builds the four kernel sources
+1. Prints the card's name and power limit, builds every kernel source
    (one ``nvcc`` per source, all at once) and prints each build time; for
    the flash library, ptxas's registers and spills per tensor-core
    instantiation and its HGMMA (wgmma) instructions from ``cuobjdump
@@ -47,7 +47,14 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    plain version, and the backward's dq, dk and dv against the plain
    training backward under ``PAIR_GRADS``, twice bit for bit; a backward
    with P or dS rounded once to bf16 (``pair_bwd_rounded_once``) must fail
-   that tolerance; the backward's kernels timed by name.  Each
+   that tolerance; the backward's kernels timed by name.  AdamW's fused
+   pair (``csrc/adamw.cu``) on yi-9b's tree cut to the benchmark's
+   16-layer stage (``ADAMW_DEPTH``, 3.29 B values, the leaves the train
+   step hands it): the fused norm within ``ADAMW_TOL`` of float64 and the
+   same bits twice; one update of the whole tree equal to the plain loop
+   bit for bit at the same norm on a sample of every leaf
+   (``adamw_against_plain``); the whole ``adamw_update`` timed against its
+   bound (32 bytes a value) and the plain loop.  Each
    kernel's median time over CUDA-event-timed runs, its bound, its plain
    version's time and, where one PyTorch call computes the same function,
    that call's time (``library_ms``; the port never calls it).  A
@@ -114,11 +121,12 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    median step ms over 3 steps after a warm one, tokens/s, model FLOPs and
    their share of the bf16 peak, and the peak memory, with remat and
    without; with deterministic algorithms, the gradients with remat equal
-   to those without; one AdamW update against a float64 update on the host
-   (``ADAMW_LEAVES``); and, on a 2-layer cut with every product in fp32, a
-   directional derivative of the whole backward against a central
-   difference of the loss (``DIRECTIONAL_TOL``).  (b) whisper-base whole
-   through ``launch.train``'s objects (``DataPipeline``, ``Trainer``,
+   to those without; one AdamW update, through its fused kernel, against a
+   float64 update on the host (``ADAMW_LEAVES``); and, on a 2-layer cut
+   with every product in fp32, a directional derivative of the whole
+   backward against a central difference of the loss
+   (``DIRECTIONAL_TOL``).  (b) whisper-base whole through
+   ``launch.train``'s objects (``DataPipeline``, ``Trainer``,
    ``CheckpointManager`` under RS(4,2) on an 8-node cluster): a compute
    failure and a lost storage node at step 6 restore step 4's checkpoint,
    bitwise, through the GF(2^8) kernel's decode, and replay steps 5 and 6
@@ -141,7 +149,8 @@ zamba2-2.7b's shared block (arXiv:2411.15242) in the registry
    card and a (1, 1) mesh: phase 7a's yi-9b cut (8 layers, B=1, S=4096)
    from the same params and moments, the sharded train step against the
    one-device step under deterministic algorithms, bit for bit (loss,
-   grad norm, every leaf), its ms beside the one-device step's; and the
+   grad norm, every leaf), AdamW's update of the local shards through its
+   fused kernel, its ms beside the one-device step's; and the
    sharded prefill (one flash launch a layer) against the one-device
    prefill, bit for bit.  (b) The flash kernel as a 4-rank
    context-parallel prefill launches it: yi-9b's B=1 S=32768 attention
@@ -276,6 +285,18 @@ PAIR_BWD_PRODUCTS = {"model": (3, 2), "with_splits": (8, 5)}
 # S^T, dP^T and the 16 rows' lse and delta take about all of a consumer
 # thread's 240 registers); any other spill, or a larger one, fails phase 2
 PAIR_SPILL_BYTES = {"flash_bwd_dkdv<128, 128>": 44}
+#: AdamW's fused pair: checked and timed at yi-9b cut to the benchmark's
+#: 16-layer stage (yi9b-train4k: 3.29 B fp32 values, 52.6 GB of params,
+#: gradients and moments, too large for a second copy to compare with)
+ADAMW_DEPTH = 16
+#: the values of each leaf the update is checked at: its first and last
+#: ``ADAMW_EDGE`` (two of the kernel's 4,096-value tiles, so its ragged end
+#: and the tile walk across it) and its share of ``ADAMW_SAMPLES`` drawn
+#: uniformly over the tree
+ADAMW_EDGE, ADAMW_SAMPLES = 8192, 1 << 22
+#: bytes a value the pair moves: the norm reads g; the update reads g, p, m
+#: and v and writes p, m and v
+ADAMW_BYTES_PER_VALUE = 32
 RAGGED = (1, 31, 33, 100, 1000, 4108, 1_000_003)   # 4108 % 16 == 12
 MXU_RAGGED = (1, 127, 1000)
 YI = dict(d_model=4096, n_heads=32, n_kv_heads=4, head_dim=128)          # arXiv:2403.04652
@@ -1138,6 +1159,146 @@ def check_pair_kernels(dev, case: tuple | None = None) -> list[dict]:
         ratios = {g: round(c["rms_ratio"], 4) for g, c in bwd_row["library_closeness"].items()}
         print(f"    library backward: RMS {ratios} x the rounding", flush=True)
     return [fwd_row, bwd_row]
+
+
+@contextlib.contextmanager
+def plain_adamw():
+    """``optim.adamw.adamw_update`` on the plain versions of both of AdamW's
+    kernels (``kernels.adamw``)."""
+    from repro_torch.kernels import adamw as ka
+
+    kernels = ka.sum_of_squares, ka.adamw_step
+    ka.sum_of_squares, ka.adamw_step = ka.sum_of_squares_plain, ka.adamw_step_plain
+    try:
+        yield
+    finally:
+        ka.sum_of_squares, ka.adamw_step = kernels
+
+
+def adamw_tree(depth: int, dev, gen) -> tuple:
+    """yi-9b's param tree at its published widths cut to ``depth`` layers,
+    fp32 on ``dev`` from ``gen``: (params, grads, opt), the gradients large
+    enough that the clip acts, the moments as a few steps leave them."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_map
+
+    arch = ARCHS[TRAIN_ARCH]
+    struct = steps.params_struct(
+        dataclasses.replace(arch, model=dataclasses.replace(arch.model, n_layers=depth)))
+
+    def draw(scale):
+        return lambda t: torch.randn(t.shape, generator=gen, device=dev).mul_(scale)
+
+    params, grads, m = (tree_map(draw(scale), struct) for scale in (0.02, 1e-3, 1e-4))
+    v = tree_map(lambda t: draw(1e-4)(t).square_(), struct)
+    return params, grads, {"m": m, "v": v,
+                           "step": torch.tensor(10, dtype=torch.int32, device=dev)}
+
+
+def adamw_against_plain(params, grads, opt, adam, norm, gen) -> dict:
+    """One ``adamw_update`` of the whole tree at ``norm`` against the plain
+    loop, with no second copy of the state: each leaf's first and last
+    ``ADAMW_EDGE`` values and its share of ``ADAMW_SAMPLES`` drawn from
+    ``gen`` are gathered from p, g, m and v before the update and from p, m
+    and v after it, and the plain loop updates the gathered values (shaped
+    (1, n) where the leaf decays, so that it decays them: the update is
+    elementwise).  Returns the values checked and how many of p, m and v
+    differ from the plain loop's."""
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.adamw import adamw_update
+
+    leaves = tree_leaves(params)
+    total = sum(p.numel() for p in leaves)
+    index = []
+    for p in leaves:
+        edge = torch.arange(min(p.numel(), ADAMW_EDGE), device=p.device)
+        drawn = torch.randint(p.numel(), (ADAMW_SAMPLES * p.numel() // total,), generator=gen,
+                              device=p.device)
+        index.append(torch.cat([edge, p.numel() - 1 - edge, drawn]))
+
+    def gather(tree):
+        return [t.reshape(-1)[i].reshape(1, -1) if t.ndim >= 2 else t.reshape(-1)[i]
+                for t, i in zip(tree_leaves(tree), index, strict=True)]
+
+    p, g, m, v = (gather(tree) for tree in (params, grads, opt["m"], opt["v"]))
+    step = opt["step"].clone()
+    adamw_update(params, grads, opt, adam, grad_norm=norm)
+    got = [gather(tree) for tree in (params, opt["m"], opt["v"])]
+    with plain_adamw():
+        adamw_update(p, g, {"m": m, "v": v, "step": step}, adam, grad_norm=norm)
+    differ = sum(int((a != b).sum()) for a, b in zip(sum(got, []), p + m + v, strict=True))
+    return {"checked": sum(i.numel() for i in index), "differ": differ}
+
+
+def float64_norm(leaves, chunk: int = 1 << 26) -> float:
+    """The L2 norm over ``leaves`` in float64, ``chunk`` values at a time."""
+    return math.sqrt(sum(float(c.double().square().sum())
+                         for t in leaves for c in t.reshape(-1).split(chunk)))
+
+
+def check_adamw_kernels(dev) -> list[dict]:
+    """Phase 2, fourth slice: AdamW's fused pair against its plain versions
+    (see the module's docstring)."""
+    import torch
+
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+    adam = AdamWConfig()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    params, grads, opt = adamw_tree(ADAMW_DEPTH, dev, gen)
+    leaves = tree_leaves(grads)
+    total, again = ka.sum_of_squares(leaves), ka.sum_of_squares(leaves)
+    exact = float64_norm(leaves)
+    norm = torch.sqrt(total).to(torch.float32)
+    norm_err = abs(float(norm) - exact) / exact
+    check(torch.equal(total, again), "adamw: the fused sum of squares differs between two runs")
+    check(norm_err <= ADAMW_TOL, f"adamw: the fused norm {float(norm)!r} is {norm_err:.3g} "
+                                 f"from the float64 norm {exact!r}")
+    sample = adamw_against_plain(params, grads, opt, adam, norm, gen)
+    check(sample["differ"] == 0, f"adamw: the kernel's update differs from the plain loop at "
+                                 f"{sample['differ']} of {sample['checked']} sampled values "
+                                 "(x3: params and moments)")
+    del leaves
+    values = sum(p.numel() for p in tree_leaves(params))
+
+    def update():
+        adamw_update(params, grads, opt, adam)
+
+    ms = median_ms(update, KERNEL_RUNS)
+    norm_ms = median_ms(lambda: ka.sum_of_squares(tree_leaves(grads)), KERNEL_RUNS)
+    with plain_adamw():
+        plain_ms = median_ms(update, PLAIN_RUNS)
+    nbytes = values * ADAMW_BYTES_PER_VALUE
+    row = {
+        "name": "adamw_update (sum_of_squares + adamw_step)", "counter": "adamw_step",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none (src/repro/optim/adamw.py:adamw_update, jnp)", "launches": None,
+        "max_abs_err": 0, "tolerance": 0, "checked_values": sample["checked"],
+        "norm_rel_err": norm_err,
+        "ms": ms, "norm_ms": norm_ms, "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # no PyTorch call computes this update (torch.optim.AdamW decays first)
+        "library_ms": None,
+        "shape": f"yi-9b {ADAMW_DEPTH} layers: {len(tree_leaves(params))} leaves, {values} values",
+        "bytes": nbytes,
+    }
+    print(f"  {row['name']} {row['shape']}: {ms:.3f} ms (norm {norm_ms:.3f} ms; plain "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms); update bit for bit at the same "
+          f"norm at {sample['checked']} sampled values, norm {norm_err:.3g} from float64",
+          flush=True)
+    del params, grads, opt
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def drive_entry_points(dev) -> None:
@@ -2078,11 +2239,12 @@ def adamw_plain(p, g, m, v, step: int, lr: float, gnorm: float, cfg) -> tuple:
     return p - lr * direction, m2, v2
 
 
-def adamw_against_float64(params, opt, cfg, batch) -> dict:
+def adamw_against_float64(params, opt, cfg, batch, counter) -> dict:
     """One AdamW update on the card (``adamw_update`` at the peak learning
     rate, so that the update stands far above fp32 rounding) against
     ``adamw_plain`` for ``ADAMW_LEAVES``: params, ``m`` and ``v`` within
-    ``ADAMW_TOL`` of each leaf's largest magnitude."""
+    ``ADAMW_TOL`` of each leaf's largest magnitude, the update through the
+    fused kernel (``counter``: its launches)."""
     import torch
 
     from repro_torch.launch.steps import loss_and_grads
@@ -2095,17 +2257,18 @@ def adamw_against_float64(params, opt, cfg, batch) -> dict:
     gnorm = float(torch.sqrt(sum(g.double().square().sum() for g in tree_leaves(grads))))
     before = {path: [by_path(tree)[path].detach().cpu().clone()
                      for tree in (params, grads, opt["m"], opt["v"])] for path in ADAMW_LEAVES}
+    launches = counter.launches
     params, opt, metrics = adamw_update(params, grads, opt, adam)
     del grads
     res = {"step": step + 1, "lr": float(metrics["lr"]), "grad_norm": float(metrics["grad_norm"]),
-           "grad_norm_f64": gnorm}
+           "grad_norm_f64": gnorm, "launches": counter.launches - launches}
     for path, leaf in before.items():
         want = adamw_plain(*leaf, step, adam.lr, gnorm, adam)
         got = [by_path(tree)[path] for tree in (params, opt["m"], opt["v"])]
         res[path] = max(float((g.detach().cpu().double() - w).abs().max() / w.abs().max())
                         for g, w in zip(got, want))
     res["ok"] = all(res[path] <= ADAMW_TOL for path in ADAMW_LEAVES) and \
-        abs(res["grad_norm"] - gnorm) <= ADAMW_TOL * gnorm
+        abs(res["grad_norm"] - gnorm) <= ADAMW_TOL * gnorm and res["launches"] > 0
     return res
 
 
@@ -2248,7 +2411,8 @@ def train_main_model(cfg, dev, counters, failures: list) -> dict:
     res["remat_vs_none"] = remat_against_none(params, cfg, batch)
     if not res["remat_vs_none"]["ok"]:
         failures.append(f"{cfg.name}: gradients with remat vs without: {res['remat_vs_none']}")
-    res["adamw_vs_float64"] = adamw_against_float64(params, opt, cfg, batch)
+    res["adamw_vs_float64"] = adamw_against_float64(params, opt, cfg, batch,
+                                                    counters["adamw_step"])
     if not res["adamw_vs_float64"]["ok"]:
         failures.append(f"{cfg.name}: AdamW vs a float64 update: {res['adamw_vs_float64']}")
     del params, opt, batch
@@ -2860,8 +3024,11 @@ def sharded_main_model(cfg, dev, counters, failures: list) -> dict:
         del fresh
         sopt = opt_at(sparams, MESH_START_STEP)
         sstep = steps.make_train_step(arch, shape, mesh)
+        adamw = counters["adamw_step"]
+        before = adamw.launches
         with deterministic() as ops_mesh:
             sparams, sopt, smetrics = sstep(sparams, sopt, batch)
+        res["adamw_launches"] = adamw.launches - before
         pairs = list(zip(tree_leaves((sparams, sopt["m"], sopt["v"])),
                          tree_leaves((want[0], want[1]["m"], want[1]["v"])), strict=True))
         res["bitwise"] = (all(torch.equal(a.to_local(), b) for a, b in pairs)
@@ -2896,6 +3063,8 @@ def sharded_main_model(cfg, dev, counters, failures: list) -> dict:
     if not res["bitwise"]:
         failures.append(f"8a sharded train step on (1, 1) differs from the one-device step: "
                         f"{res}")
+    if not res["adamw_launches"]:
+        failures.append("8a sharded train step: AdamW's update did not go through its kernel")
     return res
 
 
@@ -2994,7 +3163,8 @@ def drive_mesh(dev, counters) -> dict:
           f"B={TRAIN_BATCH} S={TRAIN_SEQ}: train step bit for bit {main['bitwise']} (loss "
           f"{main['loss']}), step {main['mesh_step_ms']:.3f} ms sharded, "
           f"{main['one_device_step_ms']:.3f} ms one-device; prefill bit for bit "
-          f"{main['prefill_bitwise']} ({main['prefill_launches']} flash launches); "
+          f"{main['prefill_bitwise']} ({main['prefill_launches']} flash launches); AdamW "
+          f"kernel launches {main['adamw_launches']}; "
           f"nondeterministic ops {main['nondeterministic_ops']}", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 8)
@@ -3465,6 +3635,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels import adamw as ka
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gf256_encode as ge
     from repro_torch.kernels import xor_reduce as xr
@@ -3504,9 +3675,14 @@ def main() -> int:
     pair_rows = check_pair_kernels(dev) + check_pair_kernels(dev, MLA_PAIR_CASE)
     pair_rows[1]["nvcc_s"] = per_source.get("flash_attention_bwd")
     pair_rows[1]["ptxas"] = inspect_pair_build()
+    torch.cuda.empty_cache()
+    adamw_rows = check_adamw_kernels(dev)
+    adamw_rows[0]["nvcc_s"] = per_source.get("adamw")
+    adamw_rows[0]["ptxas"] = ptxas_usage("adamw")
     phase_done("2")
 
-    counters = {fn.__name__: fn for fn in (*ge.KERNELS, *xr.KERNELS, *fa.KERNELS)}
+    counters = {fn.__name__: fn
+                for fn in (*ge.KERNELS, *xr.KERNELS, *fa.KERNELS, *ka.KERNELS)}
     phase("3", "data-plane main path")
     for fn in counters.values():
         fn.launches = 0
@@ -3574,6 +3750,7 @@ def main() -> int:
     flash_row["training_launches"] = counters[flash_row["name"]].launches
     flash_row["train_step_launches"] = training["main"]["train_step_launches"]
     count_launches(pair_rows, counters, "training")
+    count_launches(adamw_rows, counters, "training")
     print(f"  launches on the training path: {matmul_row['name']} "
           f"{matmul_row['training_launches']} (7b: encode "
           f"{matmul_row['training_encode_launches']}, decode "
@@ -3636,7 +3813,8 @@ def main() -> int:
                       "decode_mesh": decode_mesh, "flash_build": flash_build,
                       "gf_build": gf_build, "copy": copy, "phase_seconds": seconds}))
     print(card)
-    print(json.dumps({"kernels": dataplane_rows + attention_rows + pair_rows + [offset_row]}))
+    print(json.dumps({"kernels": dataplane_rows + attention_rows + pair_rows + adamw_rows
+                      + [offset_row]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

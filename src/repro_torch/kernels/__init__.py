@@ -5,5 +5,6 @@ gf256_encode.py     GF(2^8) matmul / stream scaling on bytes (RS encode and deco
                     and the GF(2) bit-matrix product of the "MXU" RS encode
 xor_reduce.py       parity-accumulator XOR fold
 flash_attention.py  online-softmax attention forward, and the kernel pair that trains on it
+adamw.py            AdamW's gradient norm and in-place update, fused
 ops.py              public ops with device dispatch; ref.py: plain LUT oracles
 """

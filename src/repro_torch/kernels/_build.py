@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gf256_encode", "xor_reduce", "flash_attention", "flash_attention_bwd", "gf_mxu")
+SOURCES = ("gf256_encode", "xor_reduce", "flash_attention", "flash_attention_bwd", "gf_mxu",
+           "adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

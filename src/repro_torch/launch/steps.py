@@ -267,7 +267,8 @@ def sharded_loss_and_grads(params: Any, cfg: M.ModelConfig, batch: dict, specs: 
     their ``specs``), ``batch`` this rank's rows, ``constraints``
     :func:`model_constraints`' triple.  Returns the loss summed over the
     ranks (the whole batch's mean) and the gradient shards, each on its
-    parameter's placement."""
+    parameter's placement and contiguous, as AdamW's kernel takes them (a
+    reduce-scatter along a dim other than 0 gives a permuted layout)."""
     resid, ep, attn = constraints
     ctx = resid.ctx
     live = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -275,7 +276,7 @@ def sharded_loss_and_grads(params: Any, cfg: M.ModelConfig, batch: dict, specs: 
     with ctx.bind(tree, specs), torch.enable_grad():
         share = M.loss_fn(tree, cfg, batch, ep_spec=ep, resid=resid, attn_specs=attn)
         grads = torch.autograd.grad(share, live, materialize_grads=True)
-    return ctx.sum_over_tokens(share), tree_unflatten(params, grads)
+    return ctx.sum_over_tokens(share), tree_unflatten(params, [g.contiguous() for g in grads])
 
 
 def make_train_step(

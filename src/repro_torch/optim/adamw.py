@@ -14,6 +14,13 @@ writes params, ``m`` and ``v`` in place and returns the same trees: the
 training state of a large model is then held once on the card, not twice.
 A checkpoint taken before the update keeps its own copy
 (``CheckpointManager.save`` snapshots on the caller's thread).
+
+The norm and the per-leaf update run in ``kernels.adamw``: on CUDA leaves
+a fused kernel pair (one read of the gradients for the norm, one pass over
+g, p, m and v for the update), elsewhere the plain loop of PyTorch
+operations.  The 0-d scalars of the step (clip factor, bias corrections,
+learning rate) are computed here once, on the leaves' device, for either
+route; given the same norm the two routes give the same bits.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels import adamw as kadamw
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -48,13 +56,10 @@ def init_opt_state(params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """The L2 norm over every leaf, in fp32: per-leaf sums of squares added
-    in the tree's leaf order."""
-    leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device if leaves else None)
-    for g in leaves:
-        total = total + torch.sum(g.float().square())
-    return torch.sqrt(total)
+    """The L2 norm over every leaf, in fp32: ``kernels.adamw.grad_norm`` of
+    the tree's leaves (the sum of squares in fp64, by the fused kernel on
+    the card)."""
+    return kadamw.grad_norm(tree_leaves(tree))
 
 
 @torch.no_grad()
@@ -79,15 +84,8 @@ def adamw_update(
     bc2 = 1.0 - torch.pow(b2, stepf)
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=gnorm.device)
 
-    flat = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(opt_state["m"]),
-               tree_leaves(opt_state["v"]), strict=True)
-    for p, g, m, v in flat:
-        g = g.float() * clip
-        m.mul_(b1).add_(g * (1 - b1))
-        v.mul_(b2).add_(g * (1 - b2) * g)
-        step_dir = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if p.ndim >= 2:
-            step_dir.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * step_dir)
+    kadamw.adamw_step(tree_leaves(params), tree_leaves(grads), tree_leaves(opt_state["m"]),
+                      tree_leaves(opt_state["v"]), clip, bc1, bc2, lr, b1, b2, cfg.eps,
+                      cfg.weight_decay)
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

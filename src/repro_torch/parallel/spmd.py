@@ -45,6 +45,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import adamw as kadamw
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 from repro_torch.parallel.sharding import PartitionSpec, spec_map
 
@@ -445,19 +446,18 @@ class StepContext:
         return all(self.axes[a].rank == 0 for a in AXES if a not in sharded)
 
     def global_norm(self, grads: Any, specs: Any) -> torch.Tensor:
-        """The L2 norm of the whole gradient tree from its shards: each
-        leaf's sum of squares over its shards (one all-reduce of a vector of
-        leaves, a replicated shard counted once), then the leaves added in
-        the tree's order, as ``optim.adamw.global_norm`` adds them."""
+        """The L2 norm of the whole gradient tree from its shards: this
+        rank's sum of squares over the shards it holds the counted copy of
+        (a replicated shard counted once), in fp64 by
+        ``kernels.adamw.sum_of_squares`` (the fused kernel on the card),
+        added over the mesh (one all-reduce a split axis), then its root in
+        fp32, as ``kernels.adamw.grad_norm`` takes it.  On a mesh of one
+        device, the one-device step's bits."""
         pairs: list = []
         spec_map(lambda g, s: pairs.append((g, s)), grads, specs)
-        sums = torch.stack([torch.sum(g.float().square()) if self.owns(s)
-                            else torch.zeros((), dtype=torch.float32, device=g.device)
-                            for g, s in pairs])
+        total = kadamw.sum_of_squares([g for g, s in pairs if self.owns(s)],
+                                      pairs[0][0].device if pairs else None)
         for ax in self.axes.values():       # the mesh may be part of the world
             if ax.size > 1:
-                dist.all_reduce(sums, group=ax.group)
-        total = torch.zeros((), dtype=torch.float32, device=sums.device)
-        for value in sums:
-            total = total + value
-        return torch.sqrt(total)
+                dist.all_reduce(total, group=ax.group)
+        return torch.sqrt(total).to(torch.float32)

@@ -4,7 +4,8 @@
 The phase functions run with small widths on ``torch.device("cpu")``,
 where each wrapper runs its plain version; the tests count the matmul
 wrapper's calls, and the flash kernel's plain version's, in place of their
-launches.  Each phase must pass as it is, and each of its checks must fail
+launches (and the plain AdamW loop's where the card counts its fused
+kernel's).  Each phase must pass as it is, and each of its checks must fail
 when its fault is planted.  The phase files load this module as a pytest
 plugin (``pytest_plugins``): ``smoke`` (``chip_smoke.py`` loaded afresh at
 small widths), ``counters``, and the fixtures that later phases build on,
@@ -77,6 +78,22 @@ def _flash_counted(monkeypatch):
     return flash
 
 
+def _adamw_counted(monkeypatch):
+    """The plain AdamW loop's calls, counted where the card counts the fused
+    kernel's launches (returned)."""
+    from repro_torch.kernels import adamw
+
+    counter = types.SimpleNamespace(launches=0)
+    plain = adamw.adamw_step_plain
+
+    def counted(*args, **kwargs):
+        counter.launches += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(adamw, "adamw_step_plain", counted)
+    return counter
+
+
 @pytest.fixture
 def models_on_cpu(smoke, monkeypatch):
     """Phase 6 at smoke widths on the CPU: every registered architecture's
@@ -124,4 +141,5 @@ def training_on_cpu(smoke, counters, monkeypatch):
                         ("max_memory_allocated", lambda *args: 0),
                         ("empty_cache", lambda: None)]:
         monkeypatch.setattr(torch.cuda, name, value)
-    return {"flash_attention_fwd": _flash_counted(monkeypatch), **counters}
+    return {"flash_attention_fwd": _flash_counted(monkeypatch),
+            "adamw_step": _adamw_counted(monkeypatch), **counters}

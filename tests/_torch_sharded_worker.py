@@ -132,14 +132,34 @@ def leaf_errors(got_tree, want_tree, specs, ctx) -> dict:
 
 
 def phase_steps(rank: int) -> dict:
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch import steps
-    from repro_torch.models import model as M
-    from repro_torch.parallel import sharding as sh
 
     meshes = {key: mesh_mod.make_debug_mesh(*shape, device_type="cpu")
               for key, shape in MESHES.items()}
     out = {}
+    # whether every tensor the sharded step hands AdamW is contiguous, as
+    # its kernel on the card requires (here the plain loop runs)
+    contiguous: list[bool] = []
+    adamw_step = kadamw.adamw_step
+
+    def recorded(params, grads, ms, vs, *rest):
+        contiguous.append(all(t.is_contiguous() for ts in (params, grads, ms, vs) for t in ts))
+        return adamw_step(params, grads, ms, vs, *rest)
+
+    kadamw.adamw_step = recorded
+    try:
+        _steps_cases(rank, meshes, out, contiguous)
+    finally:
+        kadamw.adamw_step = adamw_step
+    return out
+
+
+def _steps_cases(rank: int, meshes: dict, out: dict, contiguous: list) -> None:
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+
     for name, (b, s) in FAMILIES.items():
         cfg = smoke_cfg(name)
         arch, shape = _arch(cfg), _shape("train", b, s)
@@ -155,6 +175,7 @@ def phase_steps(rank: int) -> dict:
                     opt = {"m": sh.distribute_tree(opt["m"], mesh),
                            "v": sh.distribute_tree(opt["v"], mesh), "step": opt["step"]}
                     step = steps.make_train_step(arch, shape, mesh)
+                    contiguous.clear()
                     got_p, got_o, got_m = step(params, opt, batch)
                     ctx = steps.model_constraints(arch, shape, mesh)[0].ctx
                     specs = sh.param_specs(got_p, mesh)
@@ -170,13 +191,13 @@ def phase_steps(rank: int) -> dict:
                         "grad_norm": [float(got_m["grad_norm"]), float(want_m["grad_norm"])],
                         "step": [int(got_o["step"]), int(want_o["step"])],
                         "placed": placed,
+                        "adamw_contiguous": contiguous == [True],
                         "moe_ep": "moe_ep" in (steps.model_constraints(arch, shape, mesh)[2]
                                                or {}),
                         "params": leaf_errors(got_p, want_p, specs, ctx),
                         "m": leaf_errors(got_o["m"], want_o["m"], specs, ctx),
                         "v": leaf_errors(got_o["v"], want_o["v"], specs, ctx),
                     }
-    return out
 
 
 def phase_prefill(rank: int) -> dict:

@@ -19,7 +19,11 @@ zeros and ones (which it skips or XORs), every RS(6,3) decode inverse,
 and every row width its 16-byte, 4-byte and byte paths take; for the
 stream scaling the same zero and unit coefficients, tables passed in and
 tables over 48 KiB; for the XOR fold input counts on both sides of its
-8-row load group and more stripes than a grid dimension may hold.
+8-row load group and more stripes than a grid dimension may hold.  AdamW's
+fused update equals its plain loop bit for bit given the same norm (fp32
+roundings in the loop's order), on trees of stacked, unstacked, 0-d, odd
+and unaligned leaves and more leaves than one launch takes; its fused norm
+lies within 1e-6 relative of a float64 norm and repeats bit for bit.
 """
 
 import importlib.util
@@ -869,3 +873,150 @@ def test_grouped_experts_match_per_group_products(cuda, monkeypatch, widths, cou
     empty = counts_t == 0
     for g in got[2:]:
         assert (g[empty] == 0).all()
+
+
+# -- AdamW: the fused gradient norm and update (kernels/adamw.py) ------------------------------
+
+#: a tree's leaf shapes: stacked (L, d) and (L, d, f), unstacked (d,) and
+#: (d, f), a 0-d leaf, sizes 1, 3 and 4k + 1, and a leaf of many tiles
+ADAM_SHAPES = [(3, 64), (3, 64, 40), (64,), (64, 40), (), (1,), (3,), (4 * 1000 + 1,),
+               (2, 4 * 257 + 1), (4, 1024, 1000)]
+
+
+def _adam_tree(cuda, shapes, seed, scale):
+    """(params, grads, m, v) leaf lists, fp32 on the card; the moments as a
+    few steps leave them (v >= 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def draw(shape, s=1.0):
+        return s * torch.randn(shape, generator=gen, device=cuda)
+
+    params = [draw(s) for s in shapes]
+    grads = [draw(s, scale) for s in shapes]
+    m = [draw(s, 0.1) for s in shapes]
+    v = [draw(s, 0.1).square() for s in shapes]
+    return params, grads, m, v
+
+
+def _as_trees(params, grads, m, v, step):
+    opt = {"m": list(m), "v": list(v), "step": torch.tensor(step, dtype=torch.int32,
+                                                            device=params[0].device)}
+    return list(params), list(grads), opt
+
+
+@pytest.mark.parametrize("scale", [3.0, 1e-4], ids=["clipped", "unclipped"])
+@pytest.mark.parametrize("step", [0, 7])
+def test_adamw_kernel_matches_plain_bit_for_bit(cuda, monkeypatch, scale, step):
+    """The update through the kernel equals the plain loop on the card, bit
+    for bit, at the same norm; the schedule's 0-d learning rate and a clip
+    that acts and one that does not."""
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim import adamw as pt_adamw
+    from repro_torch.optim.schedule import warmup_cosine
+
+    cfg = pt_adamw.AdamWConfig(lr=3e-2)
+    leaves = _adam_tree(cuda, ADAM_SHAPES, 11 + step, scale)
+    copies = [[t.clone() for t in ts] for ts in leaves]
+    gnorm = ka.grad_norm(leaves[1])
+    assert (float(gnorm) > cfg.grad_clip) == (scale > 1)
+    params, grads, opt = _as_trees(*leaves, step)
+    lr_scale = warmup_cosine(opt["step"])
+    before = ka.adamw_step.launches
+    pt_adamw.adamw_update(params, grads, opt, cfg, lr_scale, grad_norm=gnorm)
+    assert ka.adamw_step.launches == before + 1
+    monkeypatch.setattr(ka, "adamw_step", ka.adamw_step_plain)
+    plain_params, plain_grads, plain_opt = _as_trees(*copies, step)
+    pt_adamw.adamw_update(plain_params, plain_grads, plain_opt, cfg, lr_scale, grad_norm=gnorm)
+    torch.cuda.synchronize()
+    for what, got, want in [("params", params, plain_params), ("m", opt["m"], plain_opt["m"]),
+                            ("v", opt["v"], plain_opt["v"])]:
+        for shape, g, w in zip(ADAM_SHAPES, got, want):
+            assert torch.equal(g, w), (what, shape, float((g - w).abs().max()))
+
+
+def test_adamw_kernel_takes_unaligned_leaves_and_many_launches(cuda, monkeypatch):
+    """Leaves that start off a 16-byte boundary (the one-float path) and a
+    tree of more leaves than one launch takes, bit for bit as the plain
+    loop."""
+    from repro_torch.kernels import adamw as ka
+
+    shapes = [(5, 7)] * 70 + [(4 * 500 + 3,)]
+    leaves = _adam_tree(cuda, shapes, 5, 1.0)
+    leaves = [ts[:-1] + [torch.cat([ts[-1][:1], ts[-1]])[1:]] for ts in leaves]   # offset 4 B
+    assert leaves[0][-1].data_ptr() % 16 == 4 and leaves[0][-1].is_contiguous()
+    copies = [[t.clone() for t in ts] for ts in leaves]
+    scalars = [torch.tensor(x, device=cuda) for x in (0.5, 0.19, 0.0975, 1e-3)]
+    ka.adamw_step(*leaves, *scalars, 0.9, 0.95, 1e-8, 0.1)
+    ka.adamw_step_plain(*copies, *scalars, 0.9, 0.95, 1e-8, 0.1)
+    for what, got, want in zip(("params", "grads", "m", "v"), leaves, copies):
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (what, i)
+
+
+@pytest.mark.parametrize("shapes", [ADAM_SHAPES, [(5, 7)] * 70, [(64, 1 << 20)]],
+                         ids=["tree", "many_leaves", "large"])
+def test_adamw_fused_norm_is_close_and_repeats(cuda, shapes):
+    """The fused norm within 1e-6 relative of a float64 norm, and the same
+    bits on a second run."""
+    from repro_torch.kernels import adamw as ka
+
+    grads = _adam_tree(cuda, shapes, 3, 2.0)[1]
+    before = ka.sum_of_squares.launches
+    first, second = ka.grad_norm(grads), ka.grad_norm(grads)
+    assert ka.sum_of_squares.launches == before + 2
+    exact = float(torch.sqrt(sum(g.double().square().sum() for g in grads)))
+    assert first.dtype == torch.float32 and first.shape == ()
+    assert abs(float(first) - exact) <= 1e-6 * exact
+    assert torch.equal(first, second)
+
+
+def test_adamw_given_norm_skips_the_norm_pass(cuda):
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim import adamw as pt_adamw
+
+    params, grads, opt = _as_trees(*_adam_tree(cuda, ADAM_SHAPES[:5], 2, 1.0), 0)
+    norm = ka.sum_of_squares.launches
+    step = ka.adamw_step.launches
+    given = torch.tensor(5.0, device=cuda)
+    _, _, metrics = pt_adamw.adamw_update(params, grads, opt, pt_adamw.AdamWConfig(),
+                                          grad_norm=given)
+    assert ka.sum_of_squares.launches == norm and ka.adamw_step.launches == step + 1
+    assert metrics["grad_norm"] is given
+    pt_adamw.adamw_update(params, grads, opt, pt_adamw.AdamWConfig())
+    assert ka.sum_of_squares.launches == norm + 1 and ka.adamw_step.launches == step + 2
+
+
+def test_adamw_launches_advance(cuda):
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim import adamw as pt_adamw
+
+    params, grads, opt = _as_trees(*_adam_tree(cuda, ADAM_SHAPES, 4, 1.0), 0)
+    launches = (ka.sum_of_squares.launches, ka.adamw_step.launches)
+    pt_adamw.adamw_update(params, grads, opt, pt_adamw.AdamWConfig())
+    assert (ka.sum_of_squares.launches, ka.adamw_step.launches) == (launches[0] + 1,
+                                                                   launches[1] + 1)
+
+
+def test_adamw_wrappers_refuse_leaves_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import adamw as ka
+
+    p, g, m, v = (ts[:2] for ts in _adam_tree(cuda, [(8, 12), (12,)], 9, 1.0))
+    scalars = [torch.tensor(x, device=cuda) for x in (1.0, 0.1, 0.05, 1e-3)]
+    consts = (0.9, 0.95, 1e-8, 0.1)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ka.adamw_step([p[0].t()], [g[0].t()], [m[0].t()], [v[0].t()], *scalars, *consts)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ka.grad_norm([g[0].t()])
+    with pytest.raises(TypeError, match="float32"):
+        ka.adamw_step(p, [g[0].bfloat16(), g[1]], m, v, *scalars, *consts)
+    with pytest.raises(TypeError, match="float32"):
+        ka.adamw_step([t.bfloat16() for t in p], [t.bfloat16() for t in g], m, v, *scalars,
+                      *consts)
+    with pytest.raises(ValueError, match="several devices"):
+        ka.adamw_step([p[0].cpu(), p[1]], g, m, v, *scalars, *consts)
+    with pytest.raises(ValueError, match="several devices"):
+        ka.adamw_step(p, g, m, v, scalars[0].cpu(), *scalars[1:], *consts)
+    with pytest.raises(ValueError, match="several devices"):
+        ka.grad_norm([g[0], g[1].cpu()])
+    with pytest.raises(ValueError, match="leaf 1"):
+        ka.adamw_step(p, [g[0], g[0]], m, v, *scalars, *consts)

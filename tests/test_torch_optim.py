@@ -183,6 +183,35 @@ def test_adamw_grad_clip_and_metrics():
     assert float(m["grad_norm"]) == 200.0
 
 
+def test_adamw_update_on_cpu_leaves_takes_the_plain_loop(monkeypatch):
+    """CPU leaves take the plain loop: no kernel is built or launched, and
+    ``kernels.adamw.adamw_step_plain`` updates every value."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import adamw as ka
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path tried to build a CUDA kernel")
+
+    plain, updated = ka.adamw_step_plain, []
+
+    def counted(params, *args, **kwargs):
+        updated.append(sum(p.numel() for p in params))
+        plain(params, *args, **kwargs)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(ka, "adamw_step_plain", counted)
+    tree = _adam_tree(np.random.default_rng(45))
+    params = params_from_numpy(tree, device=CPU)
+    grads = params_from_numpy(jax.tree.map(lambda p: 3.0 * np.ones_like(p), tree), device=CPU)
+    launches = (ka.sum_of_squares.launches, ka.adamw_step.launches)
+    _, _, metrics = pt_adamw.adamw_update(params, grads, pt_adamw.init_opt_state(params),
+                                          pt_adamw.AdamWConfig())
+    values = sum(int(np.size(leaf)) for leaf in jax.tree.leaves(tree))
+    assert updated == [values]
+    assert (ka.sum_of_squares.launches, ka.adamw_step.launches) == launches
+    assert float(metrics["grad_norm"]) == pytest.approx(3.0 * values ** 0.5, rel=1e-6)
+
+
 def test_a_checkpoint_before_an_update_keeps_its_own_step():
     """``adamw_update`` writes in place; the manager's snapshot, taken on
     the caller's thread, still restores the state saved before it."""

@@ -105,6 +105,14 @@ def test_sharded_train_step_matches_one_device(ranks, case):
     assert abs(gn - gn_want) <= (FP32 if exact else BF16) * gn_want
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_train_step_hands_adamw_contiguous_shards(ranks, case):
+    """Every param, gradient and moment shard that the sharded step hands
+    AdamW is contiguous, as its kernel on the card takes them; a
+    reduce-scatter along a dim other than 0 returns a permuted layout."""
+    assert all(rank["steps"][case]["adamw_contiguous"] for rank in ranks)
+
+
 def test_moe_family_takes_the_expert_parallel_path(ranks):
     for mesh in worker.MESHES:
         assert ranks[0]["steps"][f"deepseek-v2-lite-16b/{mesh}/bf16"]["moe_ep"]
