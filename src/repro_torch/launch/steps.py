@@ -8,7 +8,9 @@ shardings (PyTorch port of ``repro.launch.steps``):
 The train step differentiates ``loss_fn`` with ``torch.autograd.grad``
 (``cfg.remat`` as the model applies it; a MoE's balance term, where
 ``cfg.moe_aux_alpha`` sets one, joins the gradient inside the layer and is
-reported as ``aux_loss``, the sum over layers, beside the CE ``loss``),
+reported as ``aux_loss``, the sum over layers, beside the CE ``loss``;
+the params' buffers, ``models.layers.BUFFERS``, get no gradient and no
+AdamW step),
 scales the learning rate by
 ``warmup_cosine`` of the optimizer's step with its defaults (0 at step 0,
 as in the reference) and updates params and moments in place
@@ -45,7 +47,7 @@ import torch
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models import model as M
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.layers import trainable, tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.parallel import sharding as sh
@@ -98,13 +100,16 @@ def batch_struct(arch: ArchConfig, shape: ShapeConfig) -> dict[str, torch.Tensor
 
 def loss_and_grads(params: Any, cfg: M.ModelConfig, batch: dict) -> tuple[torch.Tensor, Any]:
     """``loss_fn``'s value (detached) and its gradient tree, shaped like
-    ``params``, whose tensors are left as they are (the gradients are taken
-    with respect to detached views of them)."""
-    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    ``trainable(params)`` (the params less their buffers, which
+    :func:`adamw_update` leaves as they are too), whose tensors are left as
+    they are (the gradients are taken with respect to detached views of
+    them)."""
+    train = trainable(params)
+    live = {id(p): p.detach().requires_grad_() for p in tree_leaves(train)}
     with torch.enable_grad():
-        loss = M.loss_fn(tree_unflatten(params, live), cfg, batch)
-        grads = torch.autograd.grad(loss, live, materialize_grads=True)
-    return loss.detach(), tree_unflatten(params, grads)
+        loss = M.loss_fn(tree_map(lambda p: live.get(id(p), p), params), cfg, batch)
+        grads = torch.autograd.grad(loss, list(live.values()), materialize_grads=True)
+    return loss.detach(), tree_unflatten(train, grads)
 
 
 class _MetaGenerator(torch.Generator):
@@ -305,6 +310,7 @@ def make_train_step(
 
 def _sharded_train_step(arch: ArchConfig, shape: ShapeConfig, mesh, adam: AdamWConfig):
     cfg = arch.model
+    M.refuse_one_device_fields(cfg, "the sharded train step")
     if cfg.moe_aux_alpha:
         raise NotImplementedError("the sharded train step takes no MoE balance term "
                                   "(ModelConfig.moe_aux_alpha)")
@@ -347,6 +353,7 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig, mesh=None):
 
 def _sharded_prefill_step(arch: ArchConfig, shape: ShapeConfig, mesh):
     cfg = arch.model
+    M.refuse_one_device_fields(cfg, "the sharded prefill step")
     resid, ep, attn = model_constraints(arch, shape, mesh)
     ctx = resid.ctx
     b_shard = batch_shardings(arch, shape, mesh)
@@ -406,6 +413,7 @@ def _sharded_serve_step(arch: ArchConfig, shape: ShapeConfig, mesh):
     from repro_torch.parallel.spmd import StepContext
 
     cfg = arch.model
+    M.refuse_one_device_fields(cfg, "the sharded serve step")
     b_shard = batch_shardings(arch, shape, mesh)
     bspec = b_shard["tokens"].spec[0]
     ctx = StepContext(mesh, batch_split=bspec is not None, seq_split=False)

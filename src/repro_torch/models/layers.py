@@ -47,6 +47,21 @@ def tree_leaves(tree: Any) -> list:
     return found
 
 
+#: leaves (by key) that training holds fixed: no gradient, no AdamW step,
+#: weight decay included (a MoE router's correction bias)
+BUFFERS = ("score_bias",)
+
+
+def trainable(tree: Any) -> Any:
+    """``tree`` without the :data:`BUFFERS`: the same leaves, in the same
+    order, less those."""
+    if isinstance(tree, dict):
+        return {k: trainable(v) for k, v in tree.items() if k not in BUFFERS}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(trainable(v) for v in tree)
+    return tree
+
+
 def tree_unflatten(template: Any, leaves) -> Any:
     """``template``'s nest with its leaves replaced, in order, by ``leaves``."""
     it = iter(leaves)
@@ -114,6 +129,19 @@ def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = dense_apply(p["gate"], x)
     u = dense_apply(p["up"], x)
     return dense_apply(p["down"], F.silu(g) * u)
+
+
+def relu2_mlp_init(gen: torch.Generator, d: int, d_ff: int) -> Params:
+    return {
+        "up": dense_init(gen, d, d_ff),
+        "down": dense_init(gen, d_ff, d, scale=1.0 / math.sqrt(d_ff)),
+    }
+
+
+def relu2_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """down(relu(up(x))^2), the square taken in fp32 and rounded once."""
+    u = dense_apply(p["up"], x)
+    return dense_apply(p["down"], F.relu(u.float()).square().to(u.dtype))
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int) -> Params:

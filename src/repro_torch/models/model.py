@@ -10,6 +10,11 @@ Families:
   xlstm   alternating mLSTM / sLSTM blocks (1 sLSTM per ``slstm_every``)
   encdec  whisper: bidirectional encoder over stub frame embeddings +
           causal decoder with cross attention
+  pattern NemotronH: one pre-norm residual mixer a block, h + mixer(RMSNorm(h)),
+          the mixer named by the block's letter of ``block_pattern``: ``M``
+          Mamba-2 (published: the convolution and the gated group norm),
+          ``E`` MoE (sigmoid routing, relu^2 experts, a shared expert),
+          ``*`` GQA attention (``rope_theta`` 0: no positions)
 
 Entry points used by the launcher:
   init_params(cfg, seed, device)             -> params
@@ -59,6 +64,7 @@ from repro_torch import DEFAULT_DEVICE
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xl
 from repro_torch.parallel import spmd
@@ -126,6 +132,19 @@ class ModelConfig:
     ssm_groups: int = 1
     ssm_chunk: int = 128
     shared_attn_every: int = 0     # zamba2: shared block cadence
+    ssm_head_dim: int = 0          # d_inner = ssm_heads * this (0 => d_model * ssm_expansion)
+    ssm_conv: int = 0              # the published mixer: conv over x, B, C (its kernel), then
+                                   # gate and RMSNorm a group (0 = no conv, norm all, then gate)
+    # NemotronH (family "pattern"); the defaults keep every other config as it was,
+    # and the registry (a verbatim copy of the JAX package's) has none of these
+    block_pattern: str = ""        # one letter a block: M mamba2, E moe, * attention
+    moe_score: str = "softmax"     # | "sigmoid": scores, a correction bias (a buffer:
+                                   # layers.BUFFERS) for the choice alone
+    moe_scaling: float = 1.0       # routed_scaling_factor on the top-k weights
+    moe_act: str = "swiglu"        # | "relu2": down(relu(up(x))^2), routed and shared
+    moe_d_ff_shared: int = 0       # a shared expert's width (0 => moe_d_ff)
+    moe_router_experts: int = 0    # the router's experts, of which moe_experts are held
+    moe_expert_first: int = 0      # the first held expert
     # xLSTM
     slstm_every: int = 0           # 1 sLSTM per this many blocks (0 = none)
     xlstm_pf: float = 2.0
@@ -141,6 +160,8 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.ssm_head_dim:
+            return self.ssm_heads * self.ssm_head_dim
         return self.d_model * self.ssm_expansion
 
     @property
@@ -161,6 +182,9 @@ class ModelConfig:
         elif self.family == "hybrid":
             total += self.n_layers * self._mamba_params()
             total += self._shared_block_params()
+        elif self.family == "pattern":
+            total += sum(self._block_params(kind, self.moe_experts)
+                         for kind in self.block_pattern)
         elif self.family == "xlstm":
             di = int(d * self.xlstm_pf)
             n_s = self.n_layers // self.slstm_every if self.slstm_every else 0
@@ -178,6 +202,9 @@ class ModelConfig:
         if not self.moe_experts:
             return self.param_count()
         d, v = self.d_model, self.vocab
+        if self.family == "pattern":
+            return 2 * v * d + sum(self._block_params(kind, self.moe_top_k)
+                                   for kind in self.block_pattern)
         total = 2 * v * d
         per = self._attn_params() + (
             (self.moe_top_k + self.moe_shared) * 3 * d * self.moe_d_ff
@@ -215,6 +242,21 @@ class ModelConfig:
     def _mamba_params(self) -> int:
         d, di = self.d_model, self.d_inner
         return d * (2 * di + 2 * self.ssm_groups * self.ssm_state + self.n_ssm_heads) + di * d
+
+    def _block_params(self, kind: str, experts: int) -> int:
+        """A pattern block's matrices, ``experts`` routed experts counted in
+        an ``E`` block (norms, biases and the SSM's per-head vectors are left
+        out, as the other families leave them)."""
+        d = self.d_model
+        if kind == "M":
+            conv = self.ssm_conv * (self.d_inner + 2 * self.ssm_groups * self.ssm_state)
+            return self._mamba_params() + conv
+        if kind == "*":
+            return self._attn_params()
+        mult = 3 if self.moe_act == "swiglu" else 2
+        shared = self.moe_shared * (self.moe_d_ff_shared or self.moe_d_ff)
+        return mult * d * (experts * self.moe_d_ff + shared) + d * (
+            self.moe_router_experts or self.moe_experts)
 
     def _shared_block_params(self) -> int:
         d2 = 2 * self.d_model
@@ -265,6 +307,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             else:
                 block = xl.slstm_init(gen, cfg.d_model, cfg.n_heads)
             p["blocks"].append({"ln": rmsnorm_init(cfg.d_model, device=dev), "p": block})
+    elif cfg.family == "pattern":
+        p["blocks"] = [{"norm": rmsnorm_init(cfg.d_model, device=dev),
+                        "mixer": _mixer_init(gen, cfg, kind)} for kind in _pattern_kinds(cfg)]
     elif cfg.family == "encdec":
         p["enc_layers"] = tf.stacked_init(gen, cfg.enc_layers,
                                           lambda g: tf.encoder_layer_init(g, cfg))
@@ -282,6 +327,44 @@ def _xlstm_kinds(cfg: ModelConfig) -> list[str]:
     if not cfg.slstm_every:
         return ["m"] * cfg.n_layers
     return ["s" if (i + 1) % cfg.slstm_every == 0 else "m" for i in range(cfg.n_layers)]
+
+
+def _pattern_kinds(cfg: ModelConfig) -> str:
+    """The pattern family's block letters, one a layer."""
+    if len(cfg.block_pattern) != cfg.n_layers or set(cfg.block_pattern) - set("ME*"):
+        raise ValueError(f"block_pattern {cfg.block_pattern!r}: {cfg.n_layers} letters of "
+                         "M, E and * expected")
+    return cfg.block_pattern
+
+
+def _mixer_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    if kind == "M":
+        return m2.mamba2_init(gen, cfg.d_model, cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state,
+                              cfg.ssm_groups, conv_kernel=cfg.ssm_conv)
+    if kind == "*":
+        return attn_mod.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                 qkv_bias=cfg.qkv_bias)
+    return moe_mod.moe_init(gen, cfg.d_model, cfg.moe_d_ff, cfg.moe_experts,
+                            n_shared=cfg.moe_shared, d_ff_shared=cfg.moe_d_ff_shared or None,
+                            act=cfg.moe_act, router_experts=cfg.moe_router_experts,
+                            score=cfg.moe_score)
+
+
+#: the fields that only one device's training and prefill take
+_ONE_DEVICE_FIELDS = ("block_pattern", "ssm_head_dim", "ssm_conv", "moe_score", "moe_scaling",
+                      "moe_act", "moe_d_ff_shared", "moe_router_experts", "moe_expert_first")
+
+
+def refuse_one_device_fields(cfg: ModelConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` naming the fields of ``cfg`` that ``what``
+    does not take: the pattern family's and its mixers' (decode needs a
+    convolution state beside the SSM state and the KV cache; a mesh, their
+    shardings)."""
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    fields = [f"ModelConfig.{name}" for name in _ONE_DEVICE_FIELDS
+              if getattr(cfg, name) != defaults[name]]
+    if fields:
+        raise NotImplementedError(f"{what} does not take {', '.join(fields)}")
 
 
 def _shared_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -333,6 +416,10 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, ep_spec=None, resid=N
                           remat=cfg.remat, constraint=resid)
     elif cfg.family == "hybrid":
         x = _forward_hybrid(params, cfg, x, resid=resid, attn_specs=attn_specs)
+    elif cfg.family == "pattern":
+        if resid is not None:
+            refuse_one_device_fields(cfg, "a forward on a mesh")
+        x = _forward_pattern(params, cfg, x)
     elif cfg.family == "xlstm":
         sp = spmd.context(resid)
 
@@ -394,6 +481,35 @@ def _forward_hybrid(params, cfg: ModelConfig, x: torch.Tensor, resid=None,
         if (i + 1) % per_group == 0:
             h = shared_block(h)
     return h
+
+
+def _forward_pattern(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The blocks in order, each h + mixer(RMSNorm(h)) under remat."""
+
+    def mamba(mixer, h):
+        return m2.mamba2_apply(mixer, h, cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state,
+                               cfg.ssm_groups, chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps)
+
+    def experts(mixer, h):
+        return moe_mod.moe_apply(mixer, h, cfg.moe_experts, cfg.moe_top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 **moe_mod.routing_options(cfg))
+
+    def attention(mixer, h):
+        return attn_mod.gqa_apply(mixer, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                  rope_theta=cfg.rope_theta, block=cfg.attn_block)
+
+    mixers = {"M": mamba, "E": experts, "*": attention}
+
+    def block(kind):
+        def one(blk, h):
+            return h + mixers[kind](blk["mixer"], rmsnorm_apply(blk["norm"], h, cfg.norm_eps))
+        return tf.remat_if(cfg.remat, one)
+
+    blocks = {kind: block(kind) for kind in "ME*"}
+    for kind, blk in zip(_pattern_kinds(cfg), params["blocks"]):
+        x = blocks[kind](blk, x)
+    return x
 
 
 def _sinusoid(s: int, d: int, device) -> torch.Tensor:
@@ -470,6 +586,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, ep_spec=None, resid=N
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device: str | torch.device = DEFAULT_DEVICE):
     dev = resolve_device(device)
+    refuse_one_device_fields(cfg, "the decode cache")
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -531,6 +648,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch: dict,
     and ``tokens`` its rows: each layer's weights are gathered whole where
     they are used, the caches written and attended where they lie, and the
     logits are this rank's rows."""
+    refuse_one_device_fields(cfg, "decode_step")
     tokens = batch["tokens"]
     x = embed_apply(tf.whole_layer(params["embed"], resid), tokens)
     cur_len = torch.as_tensor(batch["cur_len"], dtype=torch.int64, device=x.device)

@@ -24,6 +24,22 @@ gets a gradient of 1 (:class:`_AddAux`).  Routing is :func:`route`.
 ``ROUTED`` counts the dropless path's choices per expert on the device;
 ``AUX`` collects the balance terms whose gradient a backward took.
 
+NemotronH as published (``modeling_nemotron_h.py``'s ``NemotronHTopkRouter``
+and ``NemotronHMoE``) takes four more keywords, each with a default that
+leaves the calls above as they were, and each only on the dropless path:
+``score`` "sigmoid" scores the experts by the sigmoid of the fp32 logits,
+chooses the top k by score plus the router's correction bias (the
+params' ``score_bias``, held fixed: ``models.layers.BUFFERS``) and weights
+each choice by its score; ``scaling`` multiplies the weights (after the
+renormalisation); ``act`` "relu2" makes every expert, routed and shared,
+down(relu(up(x))^2), two products where SwiGLU has three; and
+``expert_first`` places the share of the experts that expert parallelism
+gives one device, where the router scores more experts than the params
+hold: the params hold experts [``expert_first``, ``expert_first`` +
+held), and the layer returns the part of the result that those experts
+give, with the shared experts (which every device computes alike) added.
+``ROUTED`` then counts the choices of all the router's experts.
+
 On a mesh, :func:`moe_ep_apply` is the reference's expert-parallel
 dataflow with its collectives written out (the reference's ``shard_map``
 body): per-rank routing, one all-to-all to the expert owners over the
@@ -41,7 +57,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dense_init, swiglu_apply, swiglu_init
+from repro_torch.models.layers import (
+    Params,
+    dense_init,
+    relu2_mlp_apply,
+    relu2_mlp_init,
+    swiglu_apply,
+    swiglu_init,
+)
 
 
 def moe_init(
@@ -51,21 +74,33 @@ def moe_init(
     n_experts: int,
     n_shared: int = 0,
     d_ff_shared: int | None = None,
+    *,
+    act: str = "swiglu",
+    router_experts: int = 0,
+    score: str = "softmax",
 ) -> Params:
+    """A MoE layer's params: ``n_experts`` held experts (of
+    ``router_experts`` routed, where set), SwiGLU or relu^2 (``act``: no
+    ``w_gate``), the shared experts as one MLP of ``n_shared`` times
+    ``d_ff_shared``, and for ``score`` "sigmoid" the router's correction
+    bias."""
     scale = 1.0 / math.sqrt(d_model)
 
     def normal(*shape):
         return torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
 
-    p: Params = {
-        "router": dense_init(gen, d_model, n_experts, scale=0.02),
-        # stacked expert weights (E, d, ff) / (E, ff, d)
-        "w_gate": normal(n_experts, d_model, d_ff_expert) * scale,
-        "w_up": normal(n_experts, d_model, d_ff_expert) * scale,
-        "w_down": normal(n_experts, d_ff_expert, d_model) * (1.0 / math.sqrt(d_ff_expert)),
-    }
+    p: Params = {"router": dense_init(gen, d_model, router_experts or n_experts, scale=0.02)}
+    # stacked expert weights (E, d, ff) / (E, ff, d)
+    if act == "swiglu":
+        p["w_gate"] = normal(n_experts, d_model, d_ff_expert) * scale
+    p["w_up"] = normal(n_experts, d_model, d_ff_expert) * scale
+    p["w_down"] = normal(n_experts, d_ff_expert, d_model) * (1.0 / math.sqrt(d_ff_expert))
     if n_shared:
-        p["shared"] = swiglu_init(gen, d_model, (d_ff_shared or d_ff_expert) * n_shared)
+        width = (d_ff_shared or d_ff_expert) * n_shared
+        p["shared"] = (swiglu_init if act == "swiglu" else relu2_mlp_init)(gen, d_model, width)
+    if score == "sigmoid":
+        p["score_bias"] = torch.zeros((router_experts or n_experts,), dtype=torch.float32,
+                                      device=gen.device)
     return p
 
 
@@ -80,22 +115,48 @@ def routing_options(cfg) -> dict:
         out["aux_alpha"] = cfg.moe_aux_alpha
     if cfg.moe_dropless:
         out["dropless"] = True
+    if cfg.moe_score != "softmax":
+        out["score"] = cfg.moe_score
+    if cfg.moe_scaling != 1.0:
+        out["scaling"] = cfg.moe_scaling
+    if cfg.moe_act != "swiglu":
+        out["act"] = cfg.moe_act
+    if cfg.moe_expert_first:
+        out["expert_first"] = cfg.moe_expert_first
     return out
 
 
 def route(router: Params, xf: torch.Tensor, top_k: int, rows: int, norm_topk: bool = True,
-          aux_alpha: float = 0.0):
+          aux_alpha: float = 0.0, score: str = "softmax", bias: torch.Tensor | None = None,
+          scaling: float = 1.0):
     """The router on tokens ``xf`` (T, d), ``rows`` sequences of T / rows:
     (weights (T, K) fp32, expert ids (T, K), the balance term or None).
     Softmax over fp32 logits, the top k in descending order (ties to the
     lower index, as ``jax.lax.top_k``), renormalised to sum 1 where
     ``norm_topk``.  The sequence-wise balance term (``aux_alpha``) only
-    while autograd records."""
+    while autograd records.
+
+    ``score`` "sigmoid": the sigmoid of the fp32 logits, the top k by score
+    plus ``bias`` (the choice alone), each choice weighted by its score,
+    renormalised as ``NemotronHTopkRouter`` does (sum plus 1e-20).  Either
+    way the weights are multiplied by ``scaling`` last."""
     logits = xf.float() @ router["w"].float()
-    probs = torch.softmax(logits, dim=-1)                           # (T, E)
-    topk_p, topk_i = torch.topk(probs, top_k, dim=-1, sorted=True)  # (T, K)
-    if norm_topk:
-        topk_p = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
+    if score == "sigmoid":
+        if aux_alpha:
+            raise NotImplementedError("a balance term on sigmoid scores (ModelConfig.moe_aux_alpha)")
+        probs = torch.sigmoid(logits)                               # (T, E)
+        choice = probs if bias is None else probs + bias.float()
+        topk_i = torch.topk(choice, top_k, dim=-1, sorted=True).indices
+        topk_p = probs.gather(-1, topk_i)
+        if norm_topk:
+            topk_p = topk_p / (topk_p.sum(-1, keepdim=True) + 1e-20)
+    else:
+        probs = torch.softmax(logits, dim=-1)                           # (T, E)
+        topk_p, topk_i = torch.topk(probs, top_k, dim=-1, sorted=True)  # (T, K)
+        if norm_topk:
+            topk_p = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
+    if scaling != 1.0:
+        topk_p = topk_p * scaling
     aux = None
     if aux_alpha and torch.is_grad_enabled():
         n_experts = probs.shape[-1]
@@ -182,23 +243,37 @@ class _GroupedExperts(torch.autograd.Function):
     device), weights (E, d, ff), (E, d, ff), (E, ff, d) cast to bf16 at
     use; three grouped products forward, six backward, each over every
     expert at once.  Returns (N, d) bf16 in ``xs``'s order; the weights'
-    gradients come back in their own dtype."""
+    gradients come back in their own dtype.
+
+    ``w_gate`` None: relu^2 experts, down(relu(up(x))^2), two products
+    forward and four backward.  ``partial``: rows may follow the last
+    group (the choices of experts not held); the products leave those rows
+    unwritten, and the Function returns them, and their gradient, as
+    zeros."""
 
     @staticmethod
-    def forward(ctx, xs, ends, w_gate, w_up, w_down):
+    def forward(ctx, xs, ends, w_gate, w_up, w_down, partial=False):
         bf16 = torch.bfloat16
-        wg, wu, wd = w_gate.to(bf16), w_up.to(bf16), w_down.to(bf16)
-        g = _grouped(xs, wg, ends)
+        wu, wd = w_up.to(bf16), w_down.to(bf16)
         u = _grouped(xs, wu, ends)
-        y = _grouped(F.silu(g) * u, wd, ends)
+        if w_gate is None:
+            g = wg = None
+            y = _grouped(F.relu(u.float()).square().to(bf16), wd, ends)
+        else:
+            wg = w_gate.to(bf16)
+            g = _grouped(xs, wg, ends)
+            y = _grouped(F.silu(g) * u, wd, ends)
+        ctx.partial = partial
         ctx.save_for_backward(xs, ends, wg, wu, wd, g, u)
-        ctx.dtypes = (w_gate.dtype, w_up.dtype, w_down.dtype)
-        return y
+        ctx.dtypes = (None if w_gate is None else w_gate.dtype, w_up.dtype, w_down.dtype)
+        return _rows_held(y, ends) if partial else y
 
     @staticmethod
     def backward(ctx, dy):
         xs, ends, wg, wu, wd, g, u = ctx.saved_tensors
         dy = dy.contiguous()
+        if wg is None:
+            return _relu2_backward(ctx, dy, xs, ends, wu, wd, u)
         g32 = g.float()
         sig = torch.sigmoid(g32)
         silu = g32 * sig
@@ -211,22 +286,58 @@ class _GroupedExperts(torch.autograd.Function):
         dwu = _grouped(xs.t(), du, ends)
         dwd = _grouped(h.t(), dy, ends)                           # (E, ff, d)
         tg, tu, td = ctx.dtypes
-        return dxs, None, dwg.to(tg), dwu.to(tu), dwd.to(td)
+        if ctx.partial:
+            dxs = _rows_held(dxs, ends)
+        return dxs, None, dwg.to(tg), dwu.to(tu), dwd.to(td), None
+
+
+def _rows_held(y: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """``y`` (N, ...) with its rows from ``ends[-1]`` on set to zero."""
+    held = torch.arange(y.shape[0], device=y.device) < ends[-1]
+    return torch.where(held[:, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def _relu2_backward(ctx, dy, xs, ends, wu, wd, u):
+    """:class:`_GroupedExperts`' backward for relu^2 experts."""
+    r = F.relu(u.float())
+    h = r.square().to(xs.dtype)
+    dh = _grouped(dy, wd.transpose(1, 2), ends).float()              # (N, ff)
+    du = (dh * 2 * r).to(xs.dtype)
+    dxs = _grouped(du, wu.transpose(1, 2), ends)
+    if ctx.partial:
+        dxs = _rows_held(dxs, ends)
+    dwu = _grouped(xs.t(), du, ends)                                   # (E, d, ff)
+    dwd = _grouped(h.t(), dy, ends)                                    # (E, ff, d)
+    _, tu, td = ctx.dtypes
+    return dxs, None, None, dwu.to(tu), dwd.to(td), None
 
 
 def _dropless(p: Params, xf: torch.Tensor, topk_p: torch.Tensor,
-              topk_i: torch.Tensor) -> torch.Tensor:
+              topk_i: torch.Tensor, expert_first: int = 0) -> torch.Tensor:
     """Every (token, choice) through its expert: the T * K choices sorted
     by expert (stable), one :class:`_GroupedExperts` call, the results put
     back in choice order and summed per token with the weights in fp32, as
-    DeepSeek's training forward combines them.  Returns (T, d) bf16."""
+    DeepSeek's training forward combines them.  Returns (T, d) bf16.
+
+    Where the params hold a share of the router's experts, from
+    ``expert_first`` on, a choice of an expert not held sorts after the
+    held ones and adds zero."""
     t, top_k = topk_i.shape
-    n_experts = p["w_gate"].shape[0]
-    sorted_e, order = torch.sort(topk_i.reshape(-1), stable=True)
+    n_experts = p["w_up"].shape[0]
+    flat = topk_i.reshape(-1)
+    routed = p["router"]["w"].shape[1]
+    # a scatter, not bincount, which reads the largest id back to the host
+    ROUTED.add(torch.zeros(routed, dtype=torch.int64, device=xf.device).scatter_add_(
+        0, flat, torch.ones_like(flat)))
+    share = n_experts != routed
+    if share:
+        local = flat - expert_first
+        flat = torch.where((local >= 0) & (local < n_experts), local, n_experts)
+    sorted_e, order = torch.sort(flat, stable=True)
     ends = torch.searchsorted(sorted_e, torch.arange(n_experts, device=xf.device), right=True)
-    ROUTED.add(torch.diff(ends, prepend=ends.new_zeros(1)))
     xs = xf.to(torch.bfloat16)[order // top_k]
-    y = _GroupedExperts.apply(xs, ends.to(torch.int32), p["w_gate"], p["w_up"], p["w_down"])
+    y = _GroupedExperts.apply(xs, ends.to(torch.int32), p.get("w_gate"), p["w_up"],
+                              p["w_down"], share)
     back = torch.empty_like(order)
     back[order] = torch.arange(order.numel(), device=xf.device)
     per_choice = y[back].reshape(t, top_k, -1).float()
@@ -244,12 +355,23 @@ def moe_apply(
     norm_topk: bool = True,
     aux_alpha: float = 0.0,
     dropless: bool = False,
+    score: str = "softmax",
+    scaling: float = 1.0,
+    act: str = "swiglu",
+    expert_first: int = 0,
 ) -> torch.Tensor:
     b, s, d = x.shape
     t = b * s
     bf16 = torch.bfloat16
     xf = x.reshape(t, d)
-    topk_p, topk_i, aux = route(p["router"], xf, top_k, b, norm_topk, aux_alpha)
+    published = {"score": score != "softmax", "act": act != "swiglu",
+                 "router_experts": p["router"]["w"].shape[1] != n_experts}
+    if not dropless and any(published.values()):
+        raise NotImplementedError(
+            "only the dropless path takes " + ", ".join(
+                f"ModelConfig.moe_{name}" for name, on in published.items() if on))
+    topk_p, topk_i, aux = route(p["router"], xf, top_k, b, norm_topk, aux_alpha, score,
+                                p.get("score_bias"), scaling)
 
     if dense_fallback:
         # weight every expert densely (exact modulo capacity dropping);
@@ -261,7 +383,7 @@ def moe_apply(
         y = torch.einsum("tef,efd->ted", F.silu(h) * u, p["w_down"].to(bf16))
         out = torch.einsum("ted,te->td", y, weights.to(bf16))
     elif dropless:
-        out = _dropless(p, xf, topk_p, topk_i)
+        out = _dropless(p, xf, topk_p, topk_i, expert_first)
     else:
         # per-row (per-example) dispatch: routing, ranking and the capacity
         # buffer are computed independently per batch row (GShard-style
@@ -300,7 +422,7 @@ def moe_apply(
     if aux is not None:
         out = _AddAux.apply(out, aux)
     if "shared" in p:
-        out = out + swiglu_apply(p["shared"], xf)
+        out = out + (swiglu_apply if act == "swiglu" else relu2_mlp_apply)(p["shared"], xf)
     return out.reshape(b, s, d).to(x.dtype)
 
 

@@ -8,6 +8,9 @@ applies to every leaf with ``ndim >= 2`` (so the *stacked* norm scales,
 (L, d), decay while an unstacked one does not), and the clip factor is
 ``min(1, grad_clip / max(norm, 1e-9))``.  ``torch.optim.AdamW`` is not
 used: its decay multiplies ``p`` before the step and rounds elsewhere.
+Leaves under the keys of ``models.layers.BUFFERS`` (a router's correction
+bias) take no step and count in no norm: the update reads the trees
+through ``trainable``, so the gradients may come with or without them.
 
 Unlike the reference, which returns new trees, :func:`adamw_update`
 writes params, ``m`` and ``v`` in place and returns the same trees: the
@@ -31,7 +34,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import adamw as kadamw
-from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.models.layers import trainable, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +79,7 @@ def adamw_update(
     0-d ``grad_norm`` and ``lr``.  A sharded step passes the local shards
     and the whole tree's ``grad_norm``, which the shards alone do not give."""
     step = opt_state["step"] + 1
+    grads = trainable(grads)
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -84,8 +88,8 @@ def adamw_update(
     bc2 = 1.0 - torch.pow(b2, stepf)
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=gnorm.device)
 
-    kadamw.adamw_step(tree_leaves(params), tree_leaves(grads), tree_leaves(opt_state["m"]),
-                      tree_leaves(opt_state["v"]), clip, bc1, bc2, lr, b1, b2, cfg.eps,
-                      cfg.weight_decay)
+    kadamw.adamw_step(*(tree_leaves(trainable(t)) for t in
+                        (params, grads, opt_state["m"], opt_state["v"])),
+                      clip, bc1, bc2, lr, b1, b2, cfg.eps, cfg.weight_decay)
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

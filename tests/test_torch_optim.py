@@ -183,6 +183,28 @@ def test_adamw_grad_clip_and_metrics():
     assert float(m["grad_norm"]) == 200.0
 
 
+@pytest.mark.parametrize("with_buffer_grads", [False, True])
+def test_adamw_update_leaves_the_buffers_as_they_are(with_buffer_grads):
+    """A ``score_bias`` leaf (``models.layers.BUFFERS``) takes no step, no
+    weight decay and no moments, and counts in no norm, whether the
+    gradients leave it out (as ``loss_and_grads`` gives them) or hold one
+    for it; the same update of the other leaves as without the buffer."""
+    params = {"router": {"w": torch.ones(2, 3)}, "score_bias": torch.ones(1, 3)}
+    grads = {"router": {"w": torch.full((2, 3), 0.5)}}
+    if with_buffer_grads:
+        grads["score_bias"] = torch.full((1, 3), 100.0)
+    opt = pt_adamw.init_opt_state(params)
+    cfg = pt_adamw.AdamWConfig(lr=0.1)
+    params, opt, m = pt_adamw.adamw_update(params, grads, opt, cfg)
+    alone = {"router": {"w": torch.ones(2, 3)}}
+    alone, _, m_alone = pt_adamw.adamw_update(alone, {"router": {"w": torch.full((2, 3), 0.5)}},
+                                              pt_adamw.init_opt_state(alone), cfg)
+    assert torch.equal(params["score_bias"], torch.ones(1, 3))
+    assert not opt["m"]["score_bias"].any() and not opt["v"]["score_bias"].any()
+    assert torch.equal(params["router"]["w"], alone["router"]["w"])
+    assert float(m["grad_norm"]) == float(m_alone["grad_norm"]) == pytest.approx(1.5 ** 0.5)
+
+
 def test_adamw_update_on_cpu_leaves_takes_the_plain_loop(monkeypatch):
     """CPU leaves take the plain loop: no kernel is built or launched, and
     ``kernels.adamw.adamw_step_plain`` updates every value."""
